@@ -1,21 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one card and check it.
+"""Drive the PyTorch/CUDA port's main paths on one card and check them.
 
 Run from the root of the repository:  python3 chip_smoke.py [--seed 0]
 
-It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
-builds the Layered-LSH index over 2**22 planted points (d = 64, 8 shards,
-2 tables: the configuration of ``benchmarks/bench_serving.py``), serves
-query buckets through ``ShardedLSHService`` on the unsorted store (full-
-scan kernel), again after ``compact()`` (CSR gather kernel; the answers
-must be bitwise equal), and again after a streaming insert of 2**16
-points and a delete of 1024 (gather plus tail scan).  Then it holds each
-kernel against its plain PyTorch version on the inputs the path gave it,
-times both with CUDA events, traces one serving bucket with
-torch.profiler, and prints one JSON line of kernel records and, last,
-``{"ok": true, "device": {...}}``.  Any failed check raises:
-the exit code is then non-zero and the last line is not printed.  With
-no CUDA device it exits with code 2 before doing anything.
+It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one nvcc per source, all started together) and drives two paths:
+
+  index     -- the Layered-LSH index over 2**22 planted points (d = 64, 8
+               shards, 2 tables: the configuration of
+               ``benchmarks/bench_serving.py``): query buckets through
+               ``ShardedLSHService`` on the unsorted store (full-scan
+               kernel), again after ``compact()`` (CSR gather kernel; the
+               answers must be bitwise equal), and again after a streaming
+               insert of 2**16 points and a delete of 1024 (gather plus
+               tail scan);
+  retrieval -- the retrieval service of ``repro_torch.launch.serve`` with
+               gemma-7b at its published width (28 layers, d_model 3072,
+               bf16, weights drawn on the card from --seed): embed 2,048
+               documents of 128 tokens in batches of 64 (the flash kernel,
+               28 launches a forward), build the index at d = 3072 with
+               serve.py's LSH settings on 8 shards, answer 4 batches of 64
+               exact-duplicate queries, insert 256 documents and answer
+               one more batch; then the full scan at d = 3072 against the
+               CSR gather, bitwise, before and after a ``compact()``.
+
+Each path runs with every launch count set to 0 just before it and read
+just after.  Each kernel is then held against its plain PyTorch version
+on the inputs its path gave it and timed with CUDA events, one serving
+bucket and one embedding forward are traced with torch.profiler, and the
+script prints one JSON line
+of kernel records and, last, ``{"ok": true, "device": {...}}``.  Any
+failed check raises: the exit code is then non-zero and the last line is
+not printed.  With no CUDA device it exits with code 2 before doing
+anything.
 """
 from __future__ import annotations
 
@@ -32,12 +49,20 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # published H100 SXM peaks (NVIDIA data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 IMAX = 2 ** 31 - 1
 BUCKETS = 4        # query buckets served per phase
 REPS = 5           # timed kernel runs
+# the retrieval path: serve.py's corpus and LSH settings, with documents
+# of 128 tokens (serve.py's 32 would fill a quarter of one of the TPU
+# kernel's 128-row tiles)
+N_DOCS, DOC_LEN, N_NEW, QUERY_BATCHES, BATCH = 2048, 128, 256, 4, 64
+RETRIEVAL_LSH = dict(r=0.2, c=2.0, k=8, W=0.5, L=16, n_tables=1,
+                     k_neighbors=1)
+BF16_TOL = 0.05    # the reference's bf16 attention tolerance
 
 
 def check(cond, msg):
@@ -112,58 +137,79 @@ def serve(svc, queries):
     return gids, dists, emit, per_bucket * 1e3
 
 
-def profile_bucket(svc, queries):
-    """Trace one serving bucket: device time by kernel, the number of
-    device launches, and the device's busy share of the bucket's wall
-    time (kernel times summed, so overlap would count twice)."""
+def traced(fn, what):
+    """Trace one fn() call (after a warm one) with torch.profiler: its wall
+    time, the device's busy share of it (kernel times summed, so overlap
+    would count twice) and the kernels by device time.  Returns the
+    kernel rows and the wall ms."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    serve(svc, queries)                                   # warm
+    fn()                                                   # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(svc, queries)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    timed_rows = [e for e in prof.key_averages()
+                  if e.self_device_time_total > 0]
+    # kernels only: an operator's row repeats its kernels' device time
+    rows = [e for e in timed_rows if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e3
+    both = sum(e.self_device_time_total for e in timed_rows) / 1e3
     launches = sum(e.count for e in rows)
-    print(f"profile: one bucket {wall:.2f} ms wall, device busy {busy:.2f} "
-          f"ms ({100 * busy / wall:.1f}%), {launches} device ops")
+    print(f"profile: {what} {wall:.2f} ms wall, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%), {launches} kernel launches "
+          f"(operator and kernel rows summed together: {both:.2f} ms)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    return rows, wall
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--log-n", type=int, default=22,
-                    help="log2 of the number of stored points")
-    args = ap.parse_args()
+def profile_forward(model, tokens):
+    """Trace one embedding forward of a 64-document batch and split its
+    device time: the flash kernel, the matrix products, the rest."""
+    from repro_torch.serving import embed_texts
+    rows, wall = traced(lambda: embed_texts(model, tokens),
+                        f"one {len(tokens)}-document forward")
+    part = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in rows:
+        key = e.key.lower()
+        name = ("flash" if "flash_attention" in key else
+                "gemm" if any(w in key for w in ("gemm", "xmma", "cutlass",
+                                                 "nvjet")) else "other")
+        part[name] += e.self_device_time_total / 1e3
+    print("forward device ms by part: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in part.items()))
 
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
+
+def recorder(captured, name, fn):
+    """fn, recording the arguments of its first call under name."""
+    def wrapped(*a, **kw):
+        captured.setdefault(name, (a, kw))
+        return fn(*a, **kw)
+    return wrapped
+
+
+def bound_of(flops, peak_flops, nbytes):
+    """(bound ms, what bounds it): the larger of the operations over the
+    peak rate for their type and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def index_path(args, captured):
+    """The slice-1 path at 2**log_n points; returns its launch counts."""
     import numpy as np
+    import torch
     from repro_torch.core import DistributedLSHIndex, LSHConfig, Scheme
     from repro_torch.kernels import bucket_search as kbs
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.serving import ShardedLSHService
-
-    t_start = time.perf_counter()
-    card = card_line()
-    print(card)
-    dev_name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {dev_name} x{count}")
-
-    # ---- phase 2: build the kernels --------------------------------------
-    t0 = time.perf_counter()
-    build_kernels()
-    print(f"phase build_kernels: {time.perf_counter() - t0:.1f} s")
 
     # ---- data: planted points N(0, 1/d), queries = point + r/sqrt(d) noise
     cfg = LSHConfig(d=64, k=10, W=1.0, r=0.3, c=2.0, L=16, n_shards=8,
@@ -180,18 +226,12 @@ def main() -> int:
     extra *= np.float32(1.0 / math.sqrt(d))
     victims = rng.choice(n, 1024, replace=False)
 
-    # record each kernel's first inputs on the path, for the comparison
-    captured = {}
+    ops.bucket_search_cuda = recorder(captured, "bucket_search",
+                                      kbs.bucket_search_cuda)
+    ops.bucket_gather_cuda = recorder(captured, "bucket_gather",
+                                      kbs.bucket_gather_cuda)
 
-    def recorder(name, fn):
-        def wrapped(*a, **kw):
-            captured.setdefault(name, (a, kw))
-            return fn(*a, **kw)
-        return wrapped
-    ops.bucket_search_cuda = recorder("bucket_search", kbs.bucket_search_cuda)
-    ops.bucket_gather_cuda = recorder("bucket_gather", kbs.bucket_gather_cuda)
-
-    # ---- the main path: counts to 0, drive, read ---------------------------
+    # ---- the path: counts to 0, drive, read ------------------------------
     kbs.bucket_search_cuda.launches = 0
     kbs.bucket_gather_cuda.launches = 0
     t0 = time.perf_counter()
@@ -239,7 +279,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"bucket_search": kbs.bucket_search_cuda.launches,
                 "bucket_gather": kbs.bucket_gather_cuda.launches}
-    print(f"launches on the main path: {launches}")
+    print(f"launches on the index path: {launches}")
 
     # ---- checks on the answers ------------------------------------------
     check(svc.stats.drops == 0, "capacity drops in serving")
@@ -262,18 +302,19 @@ def main() -> int:
     recall = float(np.mean((g4 == planted[:, None]).any(axis=1)))
     print(f"planted-neighbour recall@{K}: {recall:.4f} "
           f"(found in {float(np.mean(g4[:, 0] != IMAX)):.4f} of queries)")
+    traced(lambda: serve(svc, queries[:bucket]), "one bucket")
+    return launches
 
-    # ---- each kernel against its plain version, at the path's inputs ------
-    records = []
-    _, kw = captured.pop("bucket_search")
+
+def bucket_search_record(kw, launches):
+    """The full-scan kernel against its plain version at the arguments
+    kw of one of its calls; returns its kernel record."""
+    from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import ref
     query, store = kw["query"], kw["store"]
+    d, K, L = query.q.shape[-1], kw["K"], kw["L"]
     ms, got = timed(lambda: kbs.bucket_search_cuda(**kw), REPS)
-    t_ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    t_ev[0].record()
-    want = ref.bucket_search_ref(**kw)
-    t_ev[1].record()
-    torch.cuda.synchronize()
-    plain_ms = t_ev[0].elapsed_time(t_ev[1])
+    plain_ms, want = timed(lambda: ref.bucket_search_ref(**kw), 1)
     err = compare("bucket_search", got, want)
     live_s = (query.probe > 0).any(dim=-1).sum(dim=-1)
     valid_s = (store.valid > 0).sum(dim=-1)
@@ -282,52 +323,265 @@ def main() -> int:
     # the pairs this run's data needs: live rows x valid points per shard
     flops = 2.0 * float((live_s.double() * valid_s.double()).sum()) * d
     nbytes = (valid_pts * (d * 4 + 4 + 8 + 4 + 4 + 4)
-              + live_rows * (d * 4 + 4 + 8 * cfg.L + 4 * cfg.L + 4)
+              + live_rows * (d * 4 + 4 + 8 * L + 4 * L + 4)
               + query.q.shape[0] * query.q.shape[1] * (K * 8 + 4))
-    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    records.append({
+    bound, by = bound_of(flops, PEAK_F32_FLOPS, nbytes)
+    print(f"bucket_search d={d} K={K}: S={S} R={query.q.shape[1]} live "
+          f"rows {live_rows} N={N} valid {valid_pts}: {ms:.3f} ms "
+          f"(plain {plain_ms:.1f} ms, bound {bound:.4f} ms), max |d2 err| "
+          f"{err:.3g}")
+    return {
         "name": "bucket_search", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bucket_search.cu",
         "replaces": "src/repro/kernels/bucket_search.py:168",
-        "launches": launches["bucket_search"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": "operations" if flops / PEAK_F32_FLOPS
-        >= nbytes / PEAK_BYTES else "bytes", "library_ms": None})
-    print(f"bucket_search: S={S} R={query.q.shape[1]} live rows "
-          f"{live_rows} N={N} valid {valid_pts}: {ms:.3f} ms "
-          f"(plain {plain_ms:.1f} ms, bound {bound:.3f} ms)")
-    del kw, query, store, got, want
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None}
 
-    a, kw = captured.pop("bucket_gather")
+
+def bucket_gather_record(a, kw, launches):
+    """The gather kernel against its plain version; its kernel record."""
+    import torch
+    from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import ref
     ms, got = timed(lambda: kbs.bucket_gather_cuda(*a, **kw), REPS)
-    t_ev[0].record()
-    want = ref.bucket_gather_ref(*a, **kw)
-    t_ev[1].record()
-    torch.cuda.synchronize()
-    plain_ms = t_ev[0].elapsed_time(t_ev[1])
+    plain_ms, want = timed(lambda: ref.bucket_gather_ref(*a, **kw), 1)
     err = compare("bucket_gather", got, want)
     q, qsq, start, end = a[:4]
+    d, K = q.shape[-1], kw["K"]
     span = (end - start).to(torch.int64)
     touched = int(span.sum())
     live_e = int((span > 0).sum())
     flops = 2.0 * touched * d
     nbytes = (touched * (d * 4 + 4 + 4 + 4) + live_e * (d * 4 + 12)
               + q.shape[0] * q.shape[1] * (K * 8 + 4))
-    bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    records.append({
-        "name": "bucket_gather", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/bucket_search.cu",
-        "replaces": "src/repro/kernels/bucket_search.py:268",
-        "launches": launches["bucket_gather"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-        "bound_by": "operations" if flops / PEAK_F32_FLOPS
-        >= nbytes / PEAK_BYTES else "bytes", "library_ms": None})
+    bound, by = bound_of(flops, PEAK_F32_FLOPS, nbytes)
     print(f"bucket_gather: S={q.shape[0]} E={q.shape[1]} live {live_e} "
           f"rows touched {touched}: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
           f"bound {bound:.4f} ms)")
-    profile_bucket(svc, queries[:bucket])
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
-          f" GiB; total {time.perf_counter() - t_start:.0f} s")
+    return {
+        "name": "bucket_gather", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bucket_search.cu",
+        "replaces": "src/repro/kernels/bucket_search.py:268",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None}
+
+
+def retrieval_path(args, captured):
+    """gemma-7b at its published width behind the retrieval service;
+    returns its launch counts, the service and the query tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import Scheme, prng
+    from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import RetrievalService, embed_texts
+
+    cfg = get_config("gemma-7b")
+    check((cfg.n_layers, cfg.d_model, cfg.cdtype) == (28, 3072,
+                                                      torch.bfloat16),
+          "gemma-7b must run at its published width")
+    t0 = time.perf_counter()
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"phase init_model: {cfg.name}, {n_params / 1e9:.3f} B params, "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(args.seed)
+    docs = rng.integers(0, cfg.vocab, (N_DOCS, DOC_LEN))
+    new = rng.integers(0, cfg.vocab, (N_NEW, DOC_LEN))
+    # the query draws of serve.py (PRNGKey(2) folded with the batch)
+    srcs = [prng.randint(prng.fold_in(prng.PRNGKey(2), b), (BATCH,), 0,
+                         N_DOCS if b < QUERY_BATCHES else N_NEW).numpy()
+            for b in range(QUERY_BATCHES + 1)]
+    ops.flash_attention_cuda = recorder(captured, "flash_attention",
+                                        kfa.flash_attention_cuda)
+    ops.bucket_search_cuda = recorder(captured, "bucket_search_wide",
+                                      kbs.bucket_search_cuda)
+
+    # ---- the path: counts to 0, drive, read ------------------------------
+    kfa.flash_attention_cuda.launches = 0
+    kbs.bucket_search_cuda.launches = 0
+    kbs.bucket_gather_cuda.launches = 0
+    t0 = time.perf_counter()
+    svc = RetrievalService.build(
+        cfg, model, docs, n_shards=8, scheme=Scheme.LAYERED, seed=args.seed,
+        bucket_size=BATCH, max_latency_ms=float("inf"), **RETRIEVAL_LSH)
+    torch.cuda.synchronize()
+    idx = svc.index
+    check(idx.a2a.calls == 1 and idx.build_result.drops == 0,
+          "build: one exchange, no drops")
+    print(f"phase build_retrieval: {N_DOCS} docs embedded and indexed in "
+          f"{time.perf_counter() - t0:.1f} s, d={idx.cfg.d}, load "
+          f"{idx.shard_load.tolist()}")
+    hits, query_ms = [], []
+    for b, src in enumerate(srcs):
+        if b == QUERY_BATCHES:
+            calls = idx.a2a.calls
+            gids = svc.insert_docs(new)
+            check(idx.a2a.calls == calls + 1, "insert must exchange once")
+            check(np.array_equal(gids, np.arange(N_DOCS, N_DOCS + N_NEW)),
+                  "inserted gids")
+        tokens = docs[src] if b < QUERY_BATCHES else new[src]
+        want = src if b < QUERY_BATCHES else gids[src]
+        calls = idx.a2a.calls
+        t0 = time.perf_counter()
+        g, dist, _ = svc.query(tokens)
+        query_ms.append((time.perf_counter() - t0) * 1e3)
+        check(idx.a2a.calls == calls + 2, "a query must exchange twice")
+        check(g.shape == (BATCH, 1), "answer shape")
+        found = g[:, 0] != IMAX
+        check(np.all(dist[found, 0] <= idx.cfg.c * idx.cfg.r * (1 + 1e-5))
+              and np.all(np.isinf(dist[~found, 0])), "answers within cr")
+        hits.append(g[:, 0] == want)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": kfa.flash_attention_cuda.launches,
+                "bucket_search": kbs.bucket_search_cuda.launches,
+                "bucket_gather": kbs.bucket_gather_cuda.launches}
+    forwards = (N_DOCS + N_NEW) // BATCH + len(srcs)
+    print(f"launches on the retrieval path: {launches} over {forwards} "
+          f"forwards")
+    check(launches["flash_attention"] == cfg.n_layers * forwards,
+          "the flash kernel must launch once per layer and forward")
+    check(launches["bucket_search"] > 0, "the full scan never launched")
+    st = svc.service.stats
+    check(st.drops == 0, "capacity drops in serving")
+    share = float(np.mean(np.concatenate(hits)))
+    print(f"retrieval: query ms per batch of {BATCH} (embed + serve) "
+          f"{[round(t, 2) for t in query_ms]}, drops {st.drops}, "
+          f"exchanges {idx.a2a.calls} (1 build + 1 insert + 2 x "
+          f"{len(srcs)} queries), top-1 is the source document for "
+          f"{share:.4f} of {len(srcs) * BATCH} exact duplicates")
+    check(share > 0.0, "no query found its own document: a broken path")
+    embed_ms, _ = timed(lambda: embed_texts(model, docs[srcs[0]]), 3)
+    print(f"retrieval: embed {embed_ms:.2f} ms per {BATCH}-document "
+          f"batch (CUDA events, mean of 3), serve "
+          f"{1e3 * st.query_time_s / st.batches:.2f} ms per bucket")
+    profile_forward(model, docs[srcs[0]])
+    return launches, svc, [docs[s] for s in srcs[:-1]] + [new[srcs[-1]]]
+
+
+def wide_scan_checks(svc, query_tokens):
+    """At d = 3072 the full scan's answers are bitwise equal to the CSR
+    gather's, on the retrieval index as the path left it and after a
+    compact()."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import embed_texts
+    idx = svc.index
+    qs = [embed_texts(svc.model, t) for t in query_tokens]
+
+    def answers():
+        out = []
+        for q in qs:
+            r = idx.query(q)
+            out.append((r.topk_gid, r.topk_dist.view(np.uint32),
+                        r.n_within_cr))
+        return out
+    for when in ("as served", "after compact()"):
+        if when != "as served":
+            idx.compact()
+        idx.use_csr = True
+        csr = answers()
+        idx.use_csr = False
+        full = answers()
+        idx.use_csr = True
+        check(all(np.array_equal(a, b) for x, y in zip(csr, full)
+                  for a, b in zip(x, y)),
+              f"d=3072 {when}: CSR answers differ from the full scan's")
+        print(f"wide scan {when}: n_sorted {idx.store.n_sorted}, CSR "
+              f"bitwise equal to the full scan")
+    torch.cuda.synchronize()
+
+
+def flash_record(a, kw, launches):
+    """The flash kernel against its plain version and PyTorch's fused
+    attention at one layer's q, k, v of a 64-document batch."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    q, k, v = a
+    causal = kw.get("causal", True)
+    ms, got = timed(lambda: kfa.flash_attention_cuda(q, k, v,
+                                                     causal=causal), REPS)
+    plain_ms, want = timed(lambda: ref.attention_ref(q, k, v,
+                                                     causal=causal), 1)
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=BF16_TOL,
+                         atol=BF16_TOL),
+          f"flash_attention differs from its plain version by {err}")
+    library_ms, _ = timed(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), REPS)
+    B, H, S, dh = q.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[2])
+    flops = 4.0 * pairs * dh            # q.k and p.v, 2 FLOPs a product
+    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    print(f"flash_attention: q {tuple(q.shape)} {q.dtype}: {ms:.4f} ms "
+          f"(plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+          f"{library_ms:.4f} ms, bound {bound:.4f} ms: {nbytes / 1e6:.1f} "
+          f"MB, {flops / 1e9:.2f} GFLOP), max |err| {err:.3g}")
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:74",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": library_ms}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-n", type=int, default=22,
+                    help="log2 of the number of stored points of the "
+                         "index path")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card)
+    dev_name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {dev_name} x{count}")
+
+    t0 = time.perf_counter()
+    build_kernels()
+    print(f"phase build_kernels: {time.perf_counter() - t0:.1f} s")
+
+    # each kernel's first inputs on each path, for the comparisons
+    captured = {}
+    index_launches = index_path(args, captured)
+    records = [bucket_search_record(captured.pop("bucket_search")[1],
+                                    index_launches["bucket_search"]),
+               bucket_gather_record(*captured.pop("bucket_gather"),
+                                    index_launches["bucket_gather"])]
+    print(f"index path peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    launches, svc, query_tokens = retrieval_path(args, captured)
+    records.append(flash_record(*captured.pop("flash_attention"),
+                                launches["flash_attention"]))
+    # the full scan at the embedder's width, against its plain version
+    bucket_search_record(captured.pop("bucket_search_wide")[1],
+                         launches["bucket_search"])
+    wide_scan_checks(svc, query_tokens)
+    print(f"retrieval path peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; total "
+          f"{time.perf_counter() - t_start:.0f} s")
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -1,0 +1,58 @@
+"""Architecture configs of the zoo (``--arch <id>``), as far as ported.
+
+The registry keeps the reference's ids and aliases.  The dense attention
+archs (gemma-7b, codeqwen1.5-7b, phi3-mini-3.8b, mistral-nemo-12b) have
+their configs here; an arch whose blocks are not ported yet raises
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = [
+    "codeqwen1_5_7b",
+    "gemma_7b",
+    "phi3_mini_3_8b",
+    "mistral_nemo_12b",
+    "pixtral_12b",
+    "granite_moe_1b_a400m",
+    "deepseek_v2_lite_16b",
+    "whisper_medium",
+    "mamba2_130m",
+    "recurrentgemma_2b",
+]
+
+_ALIASES = {a.replace("_", "-"): a for a in ARCHS}
+_ALIASES.update({
+    "codeqwen1.5-7b": "codeqwen1_5_7b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+})
+
+# arch -> the ROADMAP item (Queue 1, item 11) that ports its blocks
+_NOT_PORTED = {
+    "mamba2_130m": "11.1 (the mamba2 family: models/ssm.py, "
+                   "causal_conv1d, ssd_scan_pallas)",
+    "granite_moe_1b_a400m": "11.4 (MoE)",
+    "deepseek_v2_lite_16b": "11.4 (MLA and MoE)",
+    "recurrentgemma_2b": "11.4 (RG-LRU and local attention)",
+    "whisper_medium": "11.5 (the whisper audio frontend and encoder)",
+    "pixtral_12b": "11.5 (the pixtral vision frontend)",
+}
+
+
+def get_config(name: str, reduced: bool = False):
+    """Load an architecture config by id (dash or underscore form).
+
+    reduced=True returns the small same-family config of the tests.
+    """
+    mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod_name not in ARCHS:
+        raise ValueError(f"unknown arch {name!r}; known: {ARCHS}")
+    if mod_name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name}: its blocks are not ported to repro_torch yet "
+            f"(ROADMAP Queue 1 item {_NOT_PORTED[mod_name]})")
+    mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
+    return mod.reduced_config() if reduced else mod.config()

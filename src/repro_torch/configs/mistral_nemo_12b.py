@@ -1,0 +1,25 @@
+"""mistral-nemo-12b [dense] -- 128k ctx
+[hf:mistralai/Mistral-Nemo-Base-2407; hf].
+
+40L d_model=5120 32H (GQA kv=8) d_ff=14336 vocab=131072, head_dim=128.
+"""
+from repro_torch.models.config import ModelConfig, dense_stack
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-nemo-12b",
+        d_model=5120, n_heads=32, n_kv_heads=8, head_dim=128,
+        d_ff=14336, vocab=131072, act="silu", rope_theta=1_000_000.0,
+        segments=dense_stack(40),
+    )
+
+
+def reduced_config() -> ModelConfig:
+    return ModelConfig(
+        name="mistral-nemo-12b-reduced",
+        d_model=128, n_heads=4, n_kv_heads=2, head_dim=32,
+        d_ff=384, vocab=512, act="silu", rope_theta=1_000_000.0,
+        segments=dense_stack(2),
+        param_dtype="float32", compute_dtype="float32",
+    )

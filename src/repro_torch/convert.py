@@ -1,11 +1,15 @@
-"""Carry the reference index's sampled state across to the port.
+"""Carry the reference's sampled state across to the port.
 
-The port samples its parameters with its own jax-compatible generator;
-``sample_params`` matches jax bitwise except where a normal or ``tan``
-draw rounds an ulp apart.  To make the two indexes compute the very same
-thing, the reference's arrays themselves can be installed: pass its
-``stacked_params`` fields and ``stacked_keys`` as numpy arrays (the port
-takes nothing from jax but plain arrays).
+The port samples its index parameters with its own jax-compatible
+generator; ``sample_params`` matches jax bitwise except where a normal or
+``tan`` draw rounds an ulp apart.  To make the two indexes compute the
+very same thing, the reference's arrays themselves can be installed:
+pass its ``stacked_params`` fields and ``stacked_keys`` as numpy arrays
+(the port takes nothing from jax but plain arrays).
+
+Model weights carry across the same way (``model_params_from_arrays``):
+the port draws its own with a ``torch.Generator``, which does not give
+jax.random's numbers.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashing import StackedHashParams
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
 
 FIELDS = ("A", "b", "alpha", "beta", "alpha_cauchy", "pack_mult", "pack_add")
 
@@ -44,3 +50,41 @@ def install(index, params: dict, keys) -> None:
     (before its store is populated)."""
     index.stacked_params = stacked_params_from_arrays(params, index.device)
     index.stacked_keys = keys_from_array(keys, index.device)
+
+
+def model_params_from_arrays(tree: dict, cfg: ModelConfig, device=None
+                             ) -> Transformer:
+    """The reference's ``init_params`` pytree, as numpy arrays, -> the
+    port's Transformer holding the same weights.
+
+    ``tree["segments"][i]["b<j>"]`` holds block j of segment i's unit
+    with every leaf stacked over the segment's ``repeat`` copies on axis
+    0; copy r of block j is the port's layer r * len(kinds) + j of that
+    segment.  The tied embedding table doubles as the head; an untied
+    config brings ``tree["lm_head"]``.  ``device`` is ``cuda`` unless
+    given."""
+    model = Transformer(cfg, device)
+
+    def put(dst: torch.Tensor, a) -> None:
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"shape {a.shape} != {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(a.astype(np.float32)))
+
+    put(model.embed_table, tree["embed"]["table"])
+    put(model.final_norm.scale, tree["final_norm"]["scale"])
+    if model.lm_head is not None:
+        put(model.lm_head, tree["lm_head"])
+    for seg, blocks, stacked in zip(cfg.segments, model.segments,
+                                    tree["segments"]):
+        unit = len(seg.kinds)
+        for r in range(seg.repeat):
+            for j in range(unit):
+                p, b = stacked[f"b{j}"], blocks[r * unit + j]
+                put(b.norm_mix.scale, p["norm_mix"]["scale"][r])
+                put(b.norm_mlp.scale, p["norm_mlp"]["scale"][r])
+                for w in ("wq", "wk", "wv", "wo"):
+                    put(getattr(b.attn, w), p["attn"][w][r])
+                for w in ("w_gate", "w_up", "w_down"):
+                    put(getattr(b.mlp, w), p["mlp"][w][r])
+    return model

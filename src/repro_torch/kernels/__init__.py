@@ -1,9 +1,12 @@
 """Hand-written CUDA kernels of the port and their plain versions.
 
-  bucket_search -- ctypes wrappers of the full-scan and CSR-gather kernels
-                   (csrc/bucket_search.cu), with launch counters
-  ref           -- plain PyTorch versions of both kernels
-  ops           -- layout dispatch (CSR gather + tail scan, or full scan)
-  types         -- QueryBatch / StoreView
-  _build        -- nvcc build of csrc/*.cu at first use
+  bucket_search   -- ctypes wrappers of the full-scan and CSR-gather
+                     kernels (csrc/bucket_search.cu), with launch counters
+  flash_attention -- ctypes wrapper of the flash-attention kernel
+                     (csrc/flash_attention.cu), with a launch counter
+  ref             -- plain PyTorch versions of the kernels
+  ops             -- dispatch: the bucket scan by store layout (CSR gather
+                     + tail scan, or full scan), and attention
+  types           -- QueryBatch / StoreView
+  _build          -- nvcc build of csrc/*.cu at first use
 """

@@ -20,7 +20,10 @@ MAX_SPLITS = 512      # point-axis splits of the full scan
 MIN_SPLIT = 4096      # fewest points a split is given
 PART_KEYS = 1 << 26   # most partial top-K keys the splits may hold
 SMEM_LIMIT = 232448   # dynamic shared memory one H100 block may use
-STAGE_N = 128         # points the full scan stages per barrier
+STAGE_N = 128         # most points the full scan stages per barrier
+SUB_N = 32            # points per register-accumulated sub-tile
+DCH = 16              # depth granule: d is zero-padded to a multiple
+TILE_R = 128          # query rows per block (one thread each)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,7 +35,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("bucket_search")
     if not getattr(lib, "_typed", False):
         lib.bucket_search_launch.argtypes = (
-            [_P] * 7 + [_I] * 5 + [_P] * 6 + [_LL] * 3 + [_I, _I, _F]
+            [_P] * 7 + [_I] * 5 + [_P] * 6 + [_LL] * 3 + [_I] * 5 + [_F]
             + [_P] * 5 + [_P])
         lib.bucket_search_launch.restype = _I
         lib.bucket_gather_launch.argtypes = (
@@ -72,6 +75,27 @@ def _ptr(t: torch.Tensor) -> int:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def scan_sizing(d: int, K: int) -> tuple[int, int, int]:
+    """Launch sizing of the full scan at width d and top-K K: (points
+    staged per barrier, depth of one staged slab, dynamic shared bytes).
+
+    A block's shared memory holds its rows' top-K lists (K * TILE_R
+    8-byte keys), six 4-byte columns per staged point, and the staged
+    points at a row stride of the slab depth.  While the whole padded
+    depth dp of up to STAGE_N points fits (a multiple of SUB_N), the
+    slab is dp; past that the scan stages SUB_N points at a time in
+    slabs as deep as fit, and carries each dot across the slabs, so any
+    d runs with the same ascending FMA chain."""
+    dp = -(-d // DCH) * DCH
+    fixed = K * TILE_R * 8
+    for n in range(STAGE_N, 0, -SUB_N):
+        need = n * dp * 4 + 6 * n * 4 + fixed
+        if need <= SMEM_LIMIT:
+            return n, dp, need
+    slab = (SMEM_LIMIT - fixed - 6 * SUB_N * 4) // (SUB_N * 4) // DCH * DCH
+    return SUB_N, slab, SUB_N * slab * 4 + 6 * SUB_N * 4 + fixed
 
 
 def n_splits_for(n_points: int, n_rows: int) -> int:
@@ -115,9 +139,7 @@ def bucket_search_cuda(*, query: QueryBatch, store: StoreView, cr2: float,
         _need(_rows_ok(getattr(store, name), torch.int32, name) == sn,
               f"store.{name} must share psq's shard stride")
     sb = _rows_ok(store.buckets, torch.int32, "store buckets")
-    dp = -(-d // 16) * 16
-    _need(STAGE_N * dp * 4 + 6 * STAGE_N * 4 + K * 128 * 8 <= SMEM_LIMIT,
-          f"d={d}, K={K}: the staged tile does not fit in shared memory")
+    stage_n, slab, smem = scan_sizing(d, K)
 
     # rows that probe no bucket have no hit: list the live rows first
     live = (probe > 0).any(dim=-1)
@@ -139,7 +161,7 @@ def bucket_search_cuda(*, query: QueryBatch, store: StoreView, cr2: float,
         _ptr(row_idx), _ptr(nlive), S, R, d, L, K,
         _ptr(store.points), _ptr(store.psq), _ptr(store.buckets),
         _ptr(store.gid), _ptr(store.valid), _ptr(store.table),
-        sp, sn, sb, N, n_splits, float(cr2),
+        sp, sn, sb, N, n_splits, stage_n, slab, smem, float(cr2),
         _ptr(part_keys), _ptr(part_cnt), _ptr(topd), _ptr(topg), _ptr(cnt),
         _stream())
     _check(err, "bucket_search")

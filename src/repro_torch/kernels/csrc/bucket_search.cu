@@ -23,11 +23,14 @@
 //  * one thread owns one query row: its dot products, its hit count and
 //    its sorted top-K list (in shared memory, K <= 128, so up to 128 KB
 //    of dynamic shared memory) need no synchronisation between threads;
-//  * full scan: a block stages STAGE_N points in shared memory per pair
-//    of barriers; every thread reads the same point at the same time (a
-//    broadcast, no bank conflicts) and keeps a chunk of its query row and
-//    SUB_N dot accumulators in registers, four FMAs per 16-byte shared
-//    load;
+//  * full scan: a block stages up to STAGE_N points in shared memory per
+//    pair of barriers; every thread reads the same point at the same time
+//    (a broadcast, no bank conflicts) and keeps a chunk of its query row
+//    and SUB_N dot accumulators in registers, four FMAs per 16-byte
+//    shared load.  The wrapper sizes the stage to fit the shared memory
+//    beside the top-K lists (bucket_search.py scan_sizing): fewer points
+//    for a wider d, and past that SUB_N points in slabs of depth, each
+//    dot carried in its register across the slabs, so any d runs;
 //  * the TPU's sequential point-tile grid axis becomes a loop inside the
 //    block; the full scan also splits the point axis over blocks (a second
 //    kernel merges their partial top-K lists), so a handful of live row
@@ -55,7 +58,7 @@ namespace {
 
 constexpr int TILE_R = 128;     // query rows per block, one thread each
 constexpr int SUB_N = 32;       // points per register-accumulated sub-tile
-constexpr int STAGE_N = 128;    // points staged in shared memory per barrier
+constexpr int STAGE_N = 128;    // most points staged per barrier
 constexpr int DCH = 16;         // query-row depth chunk held in registers
 constexpr int IMAX = 0x7fffffff;
 // (F32_MAX, IMAX): the empty top-K slot, larger than every real key
@@ -73,22 +76,23 @@ __device__ __forceinline__ float pair_d2(float qsq, float psq, float dot) {
   return d2 > 0.0f ? d2 : 0.0f;
 }
 
-// Dots of one query row (global memory, d floats) with SUB_N points staged
-// in shared memory at row stride dp (d rounded up to DCH, zero padded).
-// Each dot is the ascending chain acc = fma(q[k], p[k], acc), k < dp.
+// Carry the dots of one query row (global memory, d floats) with SUB_N
+// points staged in shared memory at row stride w over depths
+// [k0, k0 + depth) (zero padded past d): acc[j] = fma(q[k], p_j[k], acc[j])
+// for ascending k.  Called once per slab, it continues the one ascending
+// chain over k < dp of every dot.
 __device__ __forceinline__ void sub_tile_dots(float (&acc)[SUB_N],
                                               const float* __restrict__ qrow,
-                                              const float* ps, int d, int dp) {
-#pragma unroll
-  for (int j = 0; j < SUB_N; ++j) acc[j] = 0.0f;
-  for (int k0 = 0; k0 < dp; k0 += DCH) {
+                                              const float* ps, int k0,
+                                              int depth, int w, int d) {
+  for (int kc = 0; kc < depth; kc += DCH) {
     float qc[DCH];
 #pragma unroll
     for (int kk = 0; kk < DCH; ++kk)
-      qc[kk] = (k0 + kk < d) ? __ldg(qrow + k0 + kk) : 0.0f;
+      qc[kk] = (k0 + kc + kk < d) ? __ldg(qrow + k0 + kc + kk) : 0.0f;
 #pragma unroll
     for (int j = 0; j < SUB_N; ++j) {
-      const float4* pr = reinterpret_cast<const float4*>(ps + j * dp + k0);
+      const float4* pr = reinterpret_cast<const float4*>(ps + j * w + kc);
 #pragma unroll
       for (int v = 0; v < DCH / 4; ++v) {
         const float4 p4 = pr[v];
@@ -116,14 +120,15 @@ __device__ __forceinline__ unsigned long long topk_insert(
   return list[(K - 1) * TILE_R];
 }
 
-// Stage points [c0, c0 + n) of one shard (rows of d floats) into shared
-// memory at row stride dp; columns past `limit` and depth past d are 0.
+// Stage depths [k0, k0 + w) of points [c0, c0 + n) of one shard (rows of
+// d floats) into shared memory at row stride w; columns past `limit` and
+// depths past d are 0.
 __device__ __forceinline__ void stage_points(float* ps, const float* p,
-                                             long long c0, int n, int d,
-                                             int dp, long long limit) {
-  for (int idx = threadIdx.x; idx < n * dp; idx += blockDim.x) {
-    const int j = idx / dp;
-    const int k = idx - j * dp;
+                                             long long c0, int n, int k0,
+                                             int w, int d, long long limit) {
+  for (int idx = threadIdx.x; idx < n * w; idx += blockDim.x) {
+    const int j = idx / w;
+    const int k = k0 + idx - j * w;
     const long long c = c0 + j;
     ps[idx] = (k < d && c < limit) ? p[c * d + k] : 0.0f;
   }
@@ -140,8 +145,8 @@ __global__ void __launch_bounds__(TILE_R) bucket_search_kernel(
     const int* __restrict__ pb, const int* __restrict__ gid,
     const int* __restrict__ pvalid, const int* __restrict__ ptab,
     long long sp, long long sn, long long sb, int N, int split_len,
-    float cr2, unsigned long long* __restrict__ part_keys,
-    int* __restrict__ part_cnt) {
+    int stage_n, int slab, float cr2,
+    unsigned long long* __restrict__ part_keys, int* __restrict__ part_cnt) {
   const int s = blockIdx.y;
   const int r0 = blockIdx.x * TILE_R;
   const int live = nlive[s];
@@ -150,14 +155,14 @@ __global__ void __launch_bounds__(TILE_R) bucket_search_kernel(
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* ps = reinterpret_cast<float*>(smem);
-  float* psq_s = ps + STAGE_N * dp;
-  int* gid_s = reinterpret_cast<int*>(psq_s + STAGE_N);
-  int* ok_s = gid_s + STAGE_N;
-  int* tab_s = ok_s + STAGE_N;
-  int* hi_s = tab_s + STAGE_N;
-  int* lo_s = hi_s + STAGE_N;
+  float* psq_s = ps + stage_n * slab;
+  int* gid_s = reinterpret_cast<int*>(psq_s + stage_n);
+  int* ok_s = gid_s + stage_n;
+  int* tab_s = ok_s + stage_n;
+  int* hi_s = tab_s + stage_n;
+  int* lo_s = hi_s + stage_n;
   unsigned long long* list =
-      reinterpret_cast<unsigned long long*>(lo_s + STAGE_N) + tid;
+      reinterpret_cast<unsigned long long*>(lo_s + stage_n) + tid;
 
   const bool has_row = r0 + tid < live;
   const long long qoff =
@@ -182,10 +187,13 @@ __global__ void __launch_bounds__(TILE_R) bucket_search_kernel(
   const long long n_begin = static_cast<long long>(blockIdx.z) * split_len;
   const long long n_end = min(static_cast<long long>(N), n_begin + split_len);
 
-  for (long long c0 = n_begin; c0 < n_end; c0 += STAGE_N) {
-    __syncthreads();  // the previous tile is consumed
-    stage_points(ps, p_s, c0, STAGE_N, d, dp, n_end);
-    for (int j = tid; j < STAGE_N; j += TILE_R) {
+  // one slab holds the whole depth: a stage is staged once; else the
+  // stage is one sub-tile (stage_n == SUB_N), restaged slab by slab
+  const bool whole = slab >= dp;
+  for (long long c0 = n_begin; c0 < n_end; c0 += stage_n) {
+    __syncthreads();  // the previous stage is consumed
+    if (whole) stage_points(ps, p_s, c0, stage_n, 0, slab, d, n_end);
+    for (int j = tid; j < stage_n; j += TILE_R) {
       const long long c = c0 + j;
       const bool in = c < n_end;
       psq_s[j] = in ? psq_sh[c] : 0.0f;
@@ -196,13 +204,24 @@ __global__ void __launch_bounds__(TILE_R) bucket_search_kernel(
       lo_s[j] = in ? pb_sh[2 * c + 1] : 0;
     }
     __syncthreads();
-    if (!has_row) continue;
     const int n_sub = static_cast<int>(
-        min(static_cast<long long>(STAGE_N), n_end - c0) + SUB_N - 1) /
+        min(static_cast<long long>(stage_n), n_end - c0) + SUB_N - 1) /
         SUB_N;
     for (int sub = 0; sub < n_sub; ++sub) {
       float acc[SUB_N];
-      sub_tile_dots(acc, qrow, ps + sub * SUB_N * dp, d, dp);
+#pragma unroll
+      for (int j = 0; j < SUB_N; ++j) acc[j] = 0.0f;
+      for (int k0 = 0; k0 < dp; k0 += slab) {
+        if (!whole) {  // every thread reaches these barriers
+          __syncthreads();  // the previous slab is consumed
+          stage_points(ps, p_s, c0, SUB_N, k0, slab, d, n_end);
+          __syncthreads();
+        }
+        if (has_row)
+          sub_tile_dots(acc, qrow, ps + sub * SUB_N * slab, k0,
+                        min(slab, dp - k0), slab, d);
+      }
+      if (!has_row) continue;
 #pragma unroll
       for (int j = 0; j < SUB_N; ++j) {
         const int jj = sub * SUB_N + j;
@@ -341,6 +360,10 @@ extern "C" {
 
 // Full scan over S shards: rows (S, R), points (S, N) through shard
 // strides sp (points), sn (per-point columns), sb (bucket pairs).
+// stage_n points (a multiple of SUB_N, at most STAGE_N) are staged per
+// barrier at a slab of depth (a multiple of DCH) per staging, and smem is
+// the block's dynamic shared memory; slab < dp needs stage_n == SUB_N
+// (bucket_search.py scan_sizing computes all three).
 // part_keys (S, R, n_splits, K) and part_cnt (S, R, n_splits) are
 // scratch; topd/topg (S, R, K) and cnt (S, R) must hold the empty-row
 // values (F32_MAX, IMAX, 0) on entry: only rows listed in row_idx are
@@ -352,21 +375,23 @@ int bucket_search_launch(const float* q, const float* qsq, const int* qb,
                          const float* psq, const int* pb, const int* gid,
                          const int* pvalid, const int* ptab, long long sp,
                          long long sn, long long sb, int N, int n_splits,
-                         float cr2, unsigned long long* part_keys,
-                         int* part_cnt, float* topd, int* topg, int* cnt,
-                         void* stream) {
+                         int stage_n, int slab, int smem, float cr2,
+                         unsigned long long* part_keys, int* part_cnt,
+                         float* topd, int* topg, int* cnt, void* stream) {
   const int dp = round_up(d, DCH);
+  if (stage_n <= 0 || stage_n > STAGE_N || stage_n % SUB_N != 0 ||
+      slab <= 0 || slab % DCH != 0 || (slab < dp && stage_n != SUB_N))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int split_len = round_up((N + n_splits - 1) / n_splits, SUB_N);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = static_cast<size_t>(STAGE_N) * dp * 4 +
-                      6 * STAGE_N * 4 + static_cast<size_t>(K) * TILE_R * 8;
   cudaError_t err =
       set_smem(reinterpret_cast<const void*>(bucket_search_kernel), smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((R + TILE_R - 1) / TILE_R, S, n_splits);
   bucket_search_kernel<<<grid, TILE_R, smem, st>>>(
       q, qsq, qb, probe, qtab, row_idx, nlive, R, d, dp, L, K, p, psq, pb,
-      gid, pvalid, ptab, sp, sn, sb, N, split_len, cr2, part_keys, part_cnt);
+      gid, pvalid, ptab, sp, sn, sb, N, split_len, stage_n, slab, cr2,
+      part_keys, part_cnt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem2 = static_cast<size_t>(K) * TILE_R * 8;

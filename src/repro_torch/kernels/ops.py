@@ -1,4 +1,4 @@
-"""The per-shard bucket scan: layout dispatch around the two kernels.
+"""Dispatch around the kernels: the per-shard bucket scan, and attention.
 
 ``bucket_search`` takes the typed ``QueryBatch``/``StoreView`` surface
 (keyword-only, every tensor with a leading shard axis) and dispatches on
@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.bucket_search import (bucket_gather_cuda,
                                                bucket_search_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.types import QueryBatch, StoreView
 
 _M32 = 0xFFFFFFFF
@@ -170,3 +171,11 @@ def bucket_search(*, query: QueryBatch, store: StoreView, cr2: float,
     if store.n_sorted > 0 and not force_full_scan:
         return _csr_search(query, store, cr2, L=L, k=k)
     return bucket_search_cuda(query=query, store=store, cr2=cr2, L=L, K=k)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None):
+    """(B, H, Sq, dh) x (B, Hkv, Sk, dh) -> (B, H, Sq, dh): the flash
+    kernel on CUDA tensors, its plain version on CPU tensors.  The
+    reference pads Sq and Sk to its 128-row tiles here; the kernel takes
+    any length, so nothing is padded."""
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the bucket-search kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Each function computes exactly what its CUDA kernel computes, with
 ordinary tensor operations: the CPU tests run them, and on the card they
@@ -145,3 +145,25 @@ def bucket_gather_ref(q, qsq, start, end, p, psq, gid, pvalid,
                               K)
     topd, topg = lex_unkey(best)
     return topd, topg, cnt
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None):
+    """Exact softmax attention (plain version of ``flash_attention_cuda``).
+
+    q (B, H, Sq, dh), k/v (B, Hkv, Sk, dh); query head h reads kv head
+    h // (H // Hkv).  Scores (q * scale) . k in float32, the causal mask
+    rows >= cols (top-left, as the kernel has it), float32 weights and
+    sums; the output in q's dtype.
+    """
+    H, Sq, dh = q.shape[1], q.shape[2], q.shape[3]
+    group = H // k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    kq = k.float().repeat_interleave(group, dim=1)
+    vq = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float() * scale, kq.transpose(-1, -2))
+    if causal:
+        keep = torch.ones((Sq, k.shape[2]), dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    return torch.matmul(torch.softmax(s, dim=-1), vq).to(q.dtype)

@@ -1,0 +1,124 @@
+"""Shared model layers: init, RMSNorm, RoPE, the gated MLP, embeddings.
+
+Plain functions on tensors, and ``nn.Module``s that hold the parameters
+and call them.  Weights keep the reference's layout, (d_in, d_out) used
+as ``x @ W``, so parameters carry across unchanged (``convert.py``), and
+the large products stay ``torch.matmul`` (in float32 with TF32 off:
+PyTorch's default, which ``core.hashing`` also sets when imported).
+
+The layers follow the reference, not the published Gemma: the norm
+multiplies by ``scale`` (not ``1 + scale``), and the embedding is not
+scaled by sqrt(d_model).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def he_init_(w: torch.Tensor, generator: torch.Generator,
+             fan_in: int | None = None) -> torch.Tensor:
+    """Fill w in place with normal / sqrt(fan_in) (fan_in defaults to
+    w's first dimension), drawn in float32 and rounded to w's dtype."""
+    fan_in = fan_in or w.shape[0]
+    draw = torch.randn(w.shape, generator=generator, device=generator.device)
+    return w.copy_(draw / math.sqrt(fan_in))
+
+
+def param(*shape, dtype, device) -> nn.Parameter:
+    """An uninitialised parameter (the port serves: no gradients)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = param(d, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator=None) -> None:
+        self.scale.fill_(1.0)
+
+    def forward(self, x):
+        return rmsnorm(self.scale, x, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    expo = torch.arange(half, dtype=torch.float32, device=device) / half
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), expo)
+
+
+def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float):
+    """x: (..., S, hd); pos: (S,) integer positions."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)       # (hd/2,)
+    ang = pos.float()[..., :, None] * freqs                 # (S, hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp(p, x, act: str):
+    """p has w_gate, w_up (d, f) and w_down (f, d); GeGLU's gelu is the
+    tanh approximation."""
+    g = x @ p.w_gate
+    u = x @ p.w_up
+    h = (F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")) * u
+    return h @ p.w_down
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, f: int, act: str, dtype, device=None):
+        super().__init__()
+        self.act = act
+        self.w_gate = param(d, f, dtype=dtype, device=device)
+        self.w_up = param(d, f, dtype=dtype, device=device)
+        self.w_down = param(f, d, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        he_init_(self.w_gate, generator)
+        he_init_(self.w_up, generator)
+        he_init_(self.w_down, generator)
+
+    def forward(self, x):
+        return mlp(self, x, self.act)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed(head: torch.Tensor, x: torch.Tensor, softcap: float = 0.0):
+    logits = (x @ head).float()
+    if softcap > 0:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits

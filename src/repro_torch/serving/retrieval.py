@@ -1,0 +1,125 @@
+"""Retrieval serving path: LM embeddings + the paper's distributed LSH.
+
+The paper's workload with the model zoo as the feature extractor:
+  index build: embed documents -> DistributedLSHIndex.build (one routed
+               row per doc and table);
+  streaming:   embed new documents -> ShardedLSHService.insert;
+  query:       embed queries -> ShardedLSHService micro-batch -> entropy
+               offsets -> Layered-LSH route -> per-shard bucket search
+               -> (c,r)-NN results.
+
+Embeddings are mean-pooled final hidden states, l2-normalised (the
+paper's unit-norm setting).  The S shards are a leading tensor axis on
+one device, so ``build`` takes ``n_shards`` and ``device`` where the
+reference takes a mesh.  Warm restart from a snapshot (``recover_or_
+build``) and the pipelined front-end wait for the durability and
+pipeline parts of the port (ROADMAP Queue 1 items 7 and 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import DistributedLSHIndex, LSHConfig, Scheme
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer, hidden_states
+from repro_torch.serving.service import ShardedLSHService
+
+
+# documents embedded per forward: the reference embeds a whole corpus in
+# one call, which at gemma-7b's width would hold tens of GB of MLP
+# activations; 64 documents of 128 tokens fill the card's products
+EMBED_BATCH = 64
+
+
+@torch.no_grad()
+def embed_texts(model: Transformer, tokens) -> torch.Tensor:
+    """Mean-pooled last hidden state, unit norm, float32: tokens (B, S)
+    -> (B, d) on the model's device, embedded EMBED_BATCH rows at a
+    time."""
+    dev = model.embed_table.device
+    tokens = torch.as_tensor(tokens, device=dev)
+    out = []
+    for i in range(0, tokens.shape[0], EMBED_BATCH):
+        x = hidden_states(model, tokens[i:i + EMBED_BATCH])
+        out.append(x.mean(dim=1).float())
+    pooled = torch.cat(out) if out else torch.empty(
+        (0, model.cfg.d_model), device=dev)
+    norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+    return pooled / torch.clamp_min(norm, 1e-9)
+
+
+@dataclasses.dataclass
+class RetrievalService:
+    """End-to-end embed -> route -> search service on one device."""
+    cfg: ModelConfig
+    lsh: LSHConfig
+    model: Transformer
+    index: DistributedLSHIndex
+    service: ShardedLSHService
+
+    @classmethod
+    def build(cls, cfg: ModelConfig, model: Transformer, doc_tokens, *,
+              n_shards: int = 8, device=None, r: float = 0.25,
+              c: float = 2.0, k: int = 10, L: int = 16, W: float = 1.0,
+              scheme: Scheme = Scheme.LAYERED, seed: int = 0,
+              bucket_size: int = 64, max_latency_ms: float = 25.0,
+              k_neighbors: int = 1, n_tables: int = 1,
+              pipelined: bool = False):
+        """Embed ``doc_tokens`` and build the index over them.  ``device``
+        is the index's (``cuda`` unless given); the model stays where it
+        is."""
+        if pipelined:
+            raise NotImplementedError(
+                "the pipelined front-end is not ported yet (ROADMAP Queue "
+                "1 item 8): pass pipelined=False")
+        docs = embed_texts(model, doc_tokens)
+        lsh = LSHConfig(d=int(docs.shape[1]), k=k, W=W, r=r, c=c, L=L,
+                        n_shards=n_shards, scheme=scheme, seed=seed,
+                        n_tables=n_tables)
+        index = DistributedLSHIndex(lsh, device=device,
+                                    k_neighbors=k_neighbors)
+        index.build(docs)
+        service = ShardedLSHService(index, bucket_size=bucket_size,
+                                    max_latency_ms=max_latency_ms,
+                                    k_neighbors=k_neighbors)
+        return cls(cfg=cfg, lsh=lsh, model=model, index=index,
+                   service=service)
+
+    @classmethod
+    def recover_or_build(cls, *args, **kwargs):
+        raise NotImplementedError(
+            "warm restart needs snapshots and the write-ahead log, not "
+            "ported yet (ROADMAP Queue 1 item 7): use build()")
+
+    def insert_docs(self, doc_tokens) -> np.ndarray:
+        """Embed and stream new documents into the index; returns gids."""
+        if doc_tokens.shape[0] == 0:
+            return np.empty((0,), np.int64)
+        docs = embed_texts(self.model, doc_tokens)
+        res = self.service.insert(docs)
+        if res.drops:
+            # dropped rows are not the trailing ones, so the gid->doc
+            # attribution below would silently lie -- refuse instead
+            raise RuntimeError(
+                f"insert overflow: {res.drops} of {docs.shape[0]} docs "
+                f"dropped (store capacity {res.capacity}/shard)")
+        return np.arange(res.gid_start, res.gid_start + res.n_inserted)
+
+    def query(self, query_tokens) -> tuple[np.ndarray, np.ndarray, list]:
+        """Embed a batch of queries and answer through the micro-batcher.
+
+        Returns (b, K) top-K gid and distance arrays (K = the service's
+        k_neighbors; column 0 is the best candidate) plus the handles.
+        """
+        q = embed_texts(self.model, query_tokens)
+        handles = self.service.submit_batch(q.cpu().numpy())
+        self.service.drain()
+        gids = np.stack([h.gids for h in handles])
+        dists = np.stack([h.dists for h in handles])
+        return gids, dists, handles
+
+    def close(self) -> None:
+        """Nothing to stop: the synchronous service has no threads."""

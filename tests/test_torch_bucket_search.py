@@ -261,3 +261,24 @@ def test_gather_plain_version_walks_only_the_span():
     nearest = sorted(inside, key=lambda c: (float(psq[0, c]), c))[:K]
     assert tg[0, 1].tolist() == nearest and tg[0, 2, 0] == 300
     assert torch.all(tg[0, 0] == IMAX) and torch.all(td[0, 3] == F32_MAX)
+
+
+@pytest.mark.parametrize("K", [1, 10, 128])
+def test_full_scan_sizing_fits_every_width(K):
+    """The full-scan kernel's launch sizing takes every d the Pallas full
+    scan takes: for d in 1..8192 the staged points, their columns and the
+    top-K lists fit one H100 block's 232,448 bytes, the sizing is one the
+    kernel accepts (slabs narrower than the padded depth stage one
+    32-point sub-tile), and the widths slice 1 ran keep its 128-point
+    stages."""
+    from repro_torch.kernels import bucket_search as kbs
+    for d in range(1, 8193):
+        stage_n, slab, smem = kbs.scan_sizing(d, K)
+        dp = -(-d // kbs.DCH) * kbs.DCH
+        assert smem == (stage_n * slab * 4 + 6 * stage_n * 4
+                        + K * kbs.TILE_R * 8) <= kbs.SMEM_LIMIT, d
+        assert stage_n % kbs.SUB_N == 0 and 0 < stage_n <= kbs.STAGE_N, d
+        assert slab % kbs.DCH == 0 and 0 < slab <= dp, d
+        assert slab == dp or stage_n == kbs.SUB_N, d
+        if d <= 416 and K <= 10:
+            assert (stage_n, slab) == (kbs.STAGE_N, dp), d

@@ -5,11 +5,14 @@ jax, so they run on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Without a card they skip.  Tolerance: integers (gids, hit counts) equal;
-distances within rtol = atol = 1e-5 (the kernels sum each dot with fused
-multiply-adds, the plain versions with separate multiplies and adds).
-The CSR gather must be BITWISE equal to the full-scan kernel.  The case
-builders here are shared with ``test_torch_bucket_search.py``.
+Without a card they skip.  Tolerances: bucket search -- integers (gids,
+hit counts) equal, distances within rtol = atol = 1e-5 (the kernels sum
+each dot with fused multiply-adds, the plain versions with separate
+multiplies and adds), and the CSR gather BITWISE equal to the full-scan
+kernel at every width; flash attention -- rtol = atol = 2e-5 in float32
+(the reference's own kernel tolerance, ``tests/test_kernels.py``) and
+0.05 in bf16 (an output rounded to bf16 may land one bf16 step apart).
+The case builders here are shared with ``test_torch_bucket_search.py``.
 """
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import torch
 
 from repro_torch.core import store_layout
 from repro_torch.kernels import bucket_search as kbs
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.types import QueryBatch, StoreView
 
@@ -211,3 +215,141 @@ def test_index_on_the_card_answers_as_on_the_cpu(T, K):
         for f in ("topk_gid", "n_within_cr", "fq", "query_load"):
             np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
         np.testing.assert_allclose(got.topk_dist, want.topk_dist, **TOL)
+
+
+def _bitwise_equal(a, b):
+    for x, y in zip(a, b):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        if x.dtype == np.float32:
+            x, y = x.view(np.uint32), y.view(np.uint32)
+        np.testing.assert_array_equal(x, y)
+
+
+def _match_plain(got, want):
+    np.testing.assert_allclose(got[0].cpu(), want[0].cpu(), **TOL)
+    np.testing.assert_array_equal(got[1].cpu(), want[1].cpu())
+    np.testing.assert_array_equal(got[2].cpu(), want[2].cpu())
+    assert int(want[2].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 10, 128])
+@pytest.mark.parametrize("d", [64, 432, 768, 3072])
+def test_full_scan_kernel_any_width(d, K):
+    """Widths past slice 1's limit (d > 416): fewer staged points, then
+    depth slabs (d = 3072 is gemma-7b's embedding width).  The plain
+    version runs on the card too."""
+    dev = _cuda()
+    query, store = to_torch(case(d + K, 200, 5000, d, 8, frac_match=0.5,
+                                 T=2))
+    query, store = _to(dev, query, True), _to(dev, store, True)
+    want = ref.bucket_search_ref(query=query, store=store, cr2=2.0 * d,
+                                 L=8, K=K)
+    got = kbs.bucket_search_cuda(query=query, store=store, cr2=2.0 * d,
+                                 L=8, K=K)
+    torch.cuda.synchronize()
+    _match_plain(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 432, 768, 3072])
+def test_csr_bitwise_equal_full_scan_any_width(d):
+    dev = _cuda()
+    L, K, ns = 6, 5, 3000
+    query, store = to_torch(sorted_store_case(d, ns, 37, d, L, 2),
+                            n_sorted=ns)
+    query, store = _to(dev, query), _to(dev, store)
+    cr2 = 0.2 * d
+    csr = ops.bucket_search(query=query, store=store, cr2=cr2, L=L, k=K)
+    full = ops.bucket_search(query=query, store=store, cr2=cr2, L=L, k=K,
+                             force_full_scan=True)
+    torch.cuda.synchronize()
+    _bitwise_equal(csr, full)
+    _match_plain(csr, ref.bucket_search_ref(query=query, store=store,
+                                            cr2=cr2, L=L, K=K))
+
+
+def _attn(seed, B, H, Hkv, Sq, Sk, dh, dtype, dev):
+    rng = np.random.default_rng(seed)
+    mk = lambda h, s: torch.from_numpy(
+        (rng.standard_normal((B, h, s, dh)) * 0.5).astype(np.float32)
+    ).to(dev, dtype)
+    return mk(H, Sq), mk(Hkv, Sk), mk(Hkv, Sk)
+
+
+def _attn_close(got, want):
+    tol = 2e-5 if want.dtype == torch.float32 else 0.05
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 100, 128, 300])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 48, 64, 96, 128, 256])
+def test_flash_kernel_matches_plain_version(dh, dtype, causal, S):
+    dev = _cuda()
+    q, k, v = _attn(dh + S, 2, 4, 2, S, S, dh, dtype, dev)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    before = kfa.flash_attention_cuda.launches
+    got = kfa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_cuda.launches == before + 1
+    _attn_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hkv", [(8, 1), (6, 3)])
+def test_flash_kernel_gqa_unequal_lengths_and_strided_views(H, Hkv):
+    """MQA/GQA; non-causal Sq != Sk; q, k, v as views of (B, S, heads,
+    dh) projections, as the attention layer passes them; the output
+    keeps q's layout."""
+    dev = _cuda()
+    q, k, v = _attn(H, 2, H, Hkv, 70, 130, 64, torch.float32, dev)
+    want = ref.attention_ref(q, k, v, causal=False)
+    view = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)
+    got = kfa.flash_attention_cuda(view(q), view(k), view(v), causal=False)
+    torch.cuda.synchronize()
+    assert got.stride() == view(q).stride()
+    _attn_close(got, want)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_rejects_bad_inputs():
+    dev = _cuda()
+    q, k, v = _attn(0, 1, 2, 2, 16, 24, 64, torch.float32, dev)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        kfa.flash_attention_cuda(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="share"):
+        kfa.flash_attention_cuda(q, k.bfloat16(), v, causal=False)
+    wide = torch.zeros((1, 2, 16, 260), device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        kfa.flash_attention_cuda(wide, wide, wide)
+    odd = torch.zeros((1, 2, 16, 128), device=dev)[..., ::2]
+    with pytest.raises(ValueError, match="unit-stride"):
+        kfa.flash_attention_cuda(odd, odd, odd)
+
+
+@pytest.mark.gpu
+def test_reduced_model_on_the_card_answers_as_on_the_cpu():
+    """gemma-7b's reduced config (float32) through the kernel on the
+    card against the plain version on the CPU, the same weights: one
+    launch per layer; logits within rtol = atol = 1e-4."""
+    dev = _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    cfg = get_config("gemma-7b", reduced=True)
+    cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    card = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                       device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 100)))
+    want = forward(cpu, tokens)
+    before = kfa.flash_attention_cuda.launches
+    got = forward(card, tokens.to(dev))
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_cuda.launches == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)

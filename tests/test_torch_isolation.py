@@ -2,8 +2,9 @@
 
 Importing every module of ``repro_torch`` (in a fresh interpreter) must
 leave ``jax`` and ``repro`` out of ``sys.modules``, and no line of the
-port or of ``chip_smoke.py`` may import them.  An index built without a
-``device`` on a machine with no card raises instead of running on the
+port or of ``chip_smoke.py`` may import them.  Every entry point -- the
+index, the model, the retrieval service, the serve CLI -- built without
+a ``device`` on a machine with no card raises instead of running on the
 CPU.
 """
 import ast
@@ -31,7 +32,10 @@ def _modules():
 
 def test_importing_the_port_loads_no_jax():
     mods = list(_modules())
-    assert "repro_torch.core.index" in mods
+    for m in ("repro_torch.core.index", "repro_torch.models.transformer",
+              "repro_torch.serving.retrieval", "repro_torch.launch.serve",
+              "repro_torch.kernels.flash_attention"):
+        assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -73,6 +77,47 @@ def test_index_without_device_needs_a_card():
     assert DistributedLSHIndex(cfg, device="cpu").device.type == "cpu"
 
 
+def _needs_a_card(make, on_cpu):
+    """make() must run on cuda when there is a card and raise without
+    one; on_cpu() must run on the CPU."""
+    if torch.cuda.is_available():
+        make()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    on_cpu()
+
+
+def test_model_without_device_needs_a_card():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("gemma-7b", reduced=True)
+    gen = lambda: torch.Generator().manual_seed(0)
+    _needs_a_card(lambda: init_params(cfg, generator=gen()),
+                  lambda: init_params(cfg, generator=gen(), device="cpu"))
+
+
+def test_retrieval_service_without_device_needs_a_card():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import RetrievalService
+    cfg = get_config("gemma-7b", reduced=True)
+    model = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    docs = torch.randint(0, cfg.vocab, (16, 8),
+                         generator=torch.Generator().manual_seed(1))
+    _needs_a_card(
+        lambda: RetrievalService.build(cfg, model, docs),
+        lambda: RetrievalService.build(cfg, model, docs, device="cpu"))
+
+
+def test_serve_cli_without_device_needs_a_card():
+    from repro_torch.launch import serve
+    args = ["--docs", "16", "--batches", "1", "--batch-size", "8"]
+    _needs_a_card(lambda: serve.main(args),
+                  lambda: serve.main(args + ["--device", "cpu"]))
+
+
 def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     """On a CPU tensor the wrappers run the plain version and count no
     launch."""
@@ -91,3 +136,11 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
                                          cr2=1e9, L=1, K=3)
     assert kbs.bucket_search_cuda.launches == before
     assert torch.all(cnt == 16) and tg.shape == (1, 4, 3)
+
+    from repro_torch.kernels import flash_attention as kfa
+    q = torch.randn((1, 4, 5, 16), generator=g)
+    kv = torch.randn((1, 2, 5, 16), generator=g)
+    before = kfa.flash_attention_cuda.launches
+    out = kfa.flash_attention_cuda(q, kv, kv, causal=True)
+    assert kfa.flash_attention_cuda.launches == before
+    assert out.shape == q.shape and out.dtype == q.dtype
