@@ -4,7 +4,7 @@
 Run from the root of the repository:  python3 chip_smoke.py [--seed 0]
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one nvcc per source, all started together) and drives two paths:
+(one nvcc per source, all started together) and drives four paths:
 
   index     -- the Layered-LSH index over 2**22 planted points (d = 64, 8
                shards, 2 tables: the configuration of
@@ -14,6 +14,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                answers must be bitwise equal), and again after a streaming
                insert of 2**16 points and a delete of 1024 (gather plus
                tail scan);
+  hash      -- ``ops.lsh_hash``, the p-stable hash op, on the index's
+               Map-phase inputs: its 2**22 stored points against the
+               index's own projections of both tables side by side;
   retrieval -- the retrieval service of ``repro_torch.launch.serve`` with
                gemma-7b at its published width (28 layers, d_model 3072,
                bf16, weights drawn on the card from --seed): embed 2,048
@@ -22,7 +25,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                serve.py's LSH settings on 8 shards, answer 4 batches of 64
                exact-duplicate queries, insert 256 documents and answer
                one more batch; then the full scan at d = 3072 against the
-               CSR gather, bitwise, before and after a ``compact()``.
+               CSR gather, bitwise, before and after a ``compact()``;
+  mamba2    -- the same service with mamba2-130m at its published width
+               (24 SSD blocks, d_model 768, bf16) and documents of 1,024
+               tokens, 8 of the TPU kernel's 128-step chunks (the SSD
+               kernel, 24 launches a forward), the index at d = 768.
 
 Each path runs with every launch count set to 0 just before it and read
 just after.  Each kernel is then held against its plain PyTorch version
@@ -56,10 +63,22 @@ PEAK_BYTES = 3.35e12
 IMAX = 2 ** 31 - 1
 BUCKETS = 4        # query buckets served per phase
 REPS = 5           # timed kernel runs
-# the retrieval path: serve.py's corpus and LSH settings, with documents
-# of 128 tokens (serve.py's 32 would fill a quarter of one of the TPU
-# kernel's 128-row tiles)
-N_DOCS, DOC_LEN, N_NEW, QUERY_BATCHES, BATCH = 2048, 128, 256, 4, 64
+# the retrieval paths: serve.py's corpus and LSH settings, with documents
+# of 128 tokens for gemma-7b (serve.py's 32 would fill a quarter of one of
+# the flash kernel's 128-row tiles) and of 1,024 for mamba2-130m (8 of the
+# SSD kernel's 128-step chunks: long documents are what an SSM embedder is
+# chosen for, and the state is carried at full width)
+N_DOCS, N_NEW, QUERY_BATCHES, BATCH = 2048, 256, 4, 64
+RETRIEVAL_ARCHS = {
+    # arch: (published (layers, d_model), document tokens, kernel of the
+    #        blocks (its name in a profiler trace too), the index's slack)
+    "gemma-7b": ((28, 3072), 128, "flash_attention", 4.0),
+    # with random weights, mean-pooled mamba2 embeddings of 1,024-token
+    # documents lie close together, so Layered LSH routes most of them to
+    # one or two shards (near points share a machine, by design): the
+    # index gets the lossless slack of n_shards instead of the default 4
+    "mamba2-130m": ((24, 768), 1024, "ssd_scan", 8.0),
+}
 RETRIEVAL_LSH = dict(r=0.2, c=2.0, k=8, W=0.5, L=16, n_tables=1,
                      k_neighbors=1)
 BF16_TOL = 0.05    # the reference's bf16 attention tolerance
@@ -169,16 +188,17 @@ def traced(fn, what):
     return rows, wall
 
 
-def profile_forward(model, tokens):
+def profile_forward(model, tokens, kernel_key):
     """Trace one embedding forward of a 64-document batch and split its
-    device time: the flash kernel, the matrix products, the rest."""
+    device time: the blocks' kernel (``kernel_key`` in its name), the
+    matrix products, the rest."""
     from repro_torch.serving import embed_texts
     rows, wall = traced(lambda: embed_texts(model, tokens),
                         f"one {len(tokens)}-document forward")
-    part = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    part = {kernel_key: 0.0, "gemm": 0.0, "other": 0.0}
     for e in rows:
         key = e.key.lower()
-        name = ("flash" if "flash_attention" in key else
+        name = (kernel_key if kernel_key in key else
                 "gemm" if any(w in key for w in ("gemm", "xmma", "cutlass",
                                                  "nvjet")) else "other")
         part[name] += e.self_device_time_total / 1e3
@@ -203,7 +223,8 @@ def bound_of(flops, peak_flops, nbytes):
 
 
 def index_path(args, captured):
-    """The slice-1 path at 2**log_n points; returns its launch counts."""
+    """The slice-1 path at 2**log_n points; returns its launch counts, the
+    index and its stored points."""
     import numpy as np
     import torch
     from repro_torch.core import DistributedLSHIndex, LSHConfig, Scheme
@@ -303,7 +324,74 @@ def index_path(args, captured):
     print(f"planted-neighbour recall@{K}: {recall:.4f} "
           f"(found in {float(np.mean(g4[:, 0] != IMAX)):.4f} of queries)")
     traced(lambda: serve(svc, queries[:bucket]), "one bucket")
+    return launches, idx, data
+
+
+def lsh_hash_path(idx, data, captured):
+    """The hash op's own entry point, ``ops.lsh_hash``, on the index's
+    Map-phase inputs: every stored point against the projections of all
+    its tables side by side; returns its launch count."""
+    import torch
+    from repro_torch.kernels import lsh_hash as klh
+    from repro_torch.kernels import ops
+    T = idx.cfg.n_tables
+    x = torch.from_numpy(data).cuda()
+    A = torch.cat([idx.stacked_params.table(t).A for t in range(T)], dim=1)
+    b = torch.cat([idx.stacked_params.table(t).b for t in range(T)])
+    ops.lsh_hash_cuda = recorder(captured, "lsh_hash", klh.lsh_hash_cuda)
+    klh.lsh_hash_cuda.launches = 0
+    out = ops.lsh_hash(x, A, b, w=idx.cfg.W)
+    torch.cuda.synchronize()
+    launches = klh.lsh_hash_cuda.launches
+    check(launches == 1 and out.shape == (len(data), A.shape[1]),
+          "ops.lsh_hash must launch its kernel once")
+    print(f"launches on the hash path: {{'lsh_hash': {launches}}}")
     return launches
+
+
+def lsh_hash_record(a, kw, launches, idx):
+    """The hash kernel against its plain version and, table by table,
+    against the index's own hash_h; its kernel record."""
+    import torch
+    from repro_torch.core.hashing import hash_h
+    from repro_torch.kernels import lsh_hash as klh
+    from repro_torch.kernels import ref
+    x, A, b = a
+    ms, got = timed(lambda: klh.lsh_hash_cuda(x, A, b, **kw), REPS)
+    plain_ms, want = timed(lambda: ref.lsh_hash_ref(x, A, b, **kw), 1)
+
+    def agree(name, g, w):
+        diff = (g.long() - w.long()).abs()
+        share = float((diff == 0).double().mean())
+        check(share >= 0.999 and int(diff.max()) <= 1,
+              f"lsh_hash vs {name}: agreement {share}, max |diff| "
+              f"{int(diff.max())}")
+        return share, int(diff.max())
+    share, err = agree("its plain version", got, want)
+    k = idx.cfg.k
+    for t in range(idx.cfg.n_tables):
+        ht = hash_h(idx.stacked_params.table(t), x, idx.cfg.W)
+        st, _ = agree(f"hash_h of table {t}", got[:, k * t:k * (t + 1)], ht)
+        print(f"lsh_hash vs hash_h, table {t}: agreement {st:.7f}")
+        del ht
+    n, d = x.shape
+    K = A.shape[1]
+    nbytes = (x.numel() * x.element_size() + A.numel() * 4 + K * 4
+              + n * K * 4)
+    flops = 2.0 * n * d * K
+    bound, by = bound_of(flops, PEAK_F32_FLOPS, nbytes)
+    print(f"lsh_hash: x {tuple(x.shape)} {x.dtype} -> K={K}: {ms:.4f} ms "
+          f"(plain {plain_ms:.3f} ms, bound {bound:.4f} ms: "
+          f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), agreement "
+          f"{share:.7f}, max |diff| {err}; no single PyTorch call "
+          f"computes floor((x a + b) / w)")
+    return {
+        "name": "lsh_hash", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lsh_hash.cu",
+        "replaces": "src/repro/kernels/lsh_hash.py:34",
+        "launches": launches, "max_abs_err": float(err), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None}
 
 
 def bucket_search_record(kw, launches):
@@ -368,23 +456,27 @@ def bucket_gather_record(a, kw, launches):
         "library_ms": None}
 
 
-def retrieval_path(args, captured):
-    """gemma-7b at its published width behind the retrieval service;
+def retrieval_path(args, captured, arch):
+    """``arch`` at its published width behind the retrieval service;
     returns its launch counts, the service and the query tokens."""
+    import importlib
+
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import Scheme, prng
     from repro_torch.kernels import bucket_search as kbs
-    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.serving import RetrievalService, embed_texts
 
-    cfg = get_config("gemma-7b")
-    check((cfg.n_layers, cfg.d_model, cfg.cdtype) == (28, 3072,
+    width, doc_len, kname, slack = RETRIEVAL_ARCHS[arch]
+    kmod = importlib.import_module(f"repro_torch.kernels.{kname}")
+    kernel = getattr(kmod, f"{kname}_cuda")
+    cfg = get_config(arch)
+    check((cfg.n_layers, cfg.d_model, cfg.cdtype) == (*width,
                                                       torch.bfloat16),
-          "gemma-7b must run at its published width")
+          f"{arch} must run at its published width")
     t0 = time.perf_counter()
     model = init_params(cfg, generator=torch.Generator(
         device="cuda").manual_seed(args.seed), device="cuda")
@@ -393,30 +485,33 @@ def retrieval_path(args, captured):
     print(f"phase init_model: {cfg.name}, {n_params / 1e9:.3f} B params, "
           f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(args.seed)
-    docs = rng.integers(0, cfg.vocab, (N_DOCS, DOC_LEN))
-    new = rng.integers(0, cfg.vocab, (N_NEW, DOC_LEN))
+    docs = rng.integers(0, cfg.vocab, (N_DOCS, doc_len))
+    new = rng.integers(0, cfg.vocab, (N_NEW, doc_len))
     # the query draws of serve.py (PRNGKey(2) folded with the batch)
     srcs = [prng.randint(prng.fold_in(prng.PRNGKey(2), b), (BATCH,), 0,
                          N_DOCS if b < QUERY_BATCHES else N_NEW).numpy()
             for b in range(QUERY_BATCHES + 1)]
-    ops.flash_attention_cuda = recorder(captured, "flash_attention",
-                                        kfa.flash_attention_cuda)
-    ops.bucket_search_cuda = recorder(captured, "bucket_search_wide",
+    setattr(ops, f"{kname}_cuda", recorder(captured, kname, kernel))
+    ops.bucket_search_cuda = recorder(captured, f"bucket_search_{arch}",
                                       kbs.bucket_search_cuda)
 
     # ---- the path: counts to 0, drive, read ------------------------------
-    kfa.flash_attention_cuda.launches = 0
+    kernel.launches = 0
     kbs.bucket_search_cuda.launches = 0
     kbs.bucket_gather_cuda.launches = 0
     t0 = time.perf_counter()
     svc = RetrievalService.build(
         cfg, model, docs, n_shards=8, scheme=Scheme.LAYERED, seed=args.seed,
-        bucket_size=BATCH, max_latency_ms=float("inf"), **RETRIEVAL_LSH)
+        bucket_size=BATCH, max_latency_ms=float("inf"), slack=slack,
+        **RETRIEVAL_LSH)
     torch.cuda.synchronize()
     idx = svc.index
-    check(idx.a2a.calls == 1 and idx.build_result.drops == 0,
-          "build: one exchange, no drops")
-    print(f"phase build_retrieval: {N_DOCS} docs embedded and indexed in "
+    check(idx.a2a.calls == 1, "build: one exchange")
+    check(idx.build_result.drops == 0,
+          f"build: {idx.build_result.drops} drops, load "
+          f"{idx.shard_load.tolist()}")
+    print(f"phase build_retrieval {arch}: {N_DOCS} docs of {doc_len} "
+          f"tokens embedded and indexed in "
           f"{time.perf_counter() - t0:.1f} s, d={idx.cfg.d}, load "
           f"{idx.shard_load.tolist()}")
     hits, query_ms = [], []
@@ -440,29 +535,34 @@ def retrieval_path(args, captured):
               and np.all(np.isinf(dist[~found, 0])), "answers within cr")
         hits.append(g[:, 0] == want)
     torch.cuda.synchronize()
-    launches = {"flash_attention": kfa.flash_attention_cuda.launches,
+    launches = {kname: kernel.launches,
                 "bucket_search": kbs.bucket_search_cuda.launches,
                 "bucket_gather": kbs.bucket_gather_cuda.launches}
     forwards = (N_DOCS + N_NEW) // BATCH + len(srcs)
-    print(f"launches on the retrieval path: {launches} over {forwards} "
-          f"forwards")
-    check(launches["flash_attention"] == cfg.n_layers * forwards,
-          "the flash kernel must launch once per layer and forward")
+    print(f"launches on the {arch} retrieval path: {launches} over "
+          f"{forwards} forwards")
+    check(launches[kname] == cfg.n_layers * forwards,
+          f"the {kname} kernel must launch once per layer and forward")
     check(launches["bucket_search"] > 0, "the full scan never launched")
     st = svc.service.stats
     check(st.drops == 0, "capacity drops in serving")
     share = float(np.mean(np.concatenate(hits)))
-    print(f"retrieval: query ms per batch of {BATCH} (embed + serve) "
+    print(f"retrieval {arch}: query ms per batch of {BATCH} (embed + serve) "
           f"{[round(t, 2) for t in query_ms]}, drops {st.drops}, "
           f"exchanges {idx.a2a.calls} (1 build + 1 insert + 2 x "
           f"{len(srcs)} queries), top-1 is the source document for "
           f"{share:.4f} of {len(srcs) * BATCH} exact duplicates")
     check(share > 0.0, "no query found its own document: a broken path")
-    embed_ms, _ = timed(lambda: embed_texts(model, docs[srcs[0]]), 3)
-    print(f"retrieval: embed {embed_ms:.2f} ms per {BATCH}-document "
-          f"batch (CUDA events, mean of 3), serve "
-          f"{1e3 * st.query_time_s / st.batches:.2f} ms per bucket")
-    profile_forward(model, docs[srcs[0]])
+    embed_ms, emb = timed(lambda: embed_texts(model, docs[srcs[0]]), 3)
+    check(bool(torch.isfinite(emb).all()), "non-finite embeddings")
+    cos = (emb @ emb.T)[~torch.eye(len(emb), dtype=torch.bool,
+                                   device=emb.device)]
+    print(f"retrieval {arch}: embed {embed_ms:.2f} ms per {BATCH}-document "
+          f"batch of {doc_len} tokens (CUDA events, mean of 3), serve "
+          f"{1e3 * st.query_time_s / st.batches:.2f} ms per bucket; "
+          f"pairwise cosine of a batch's embeddings: mean "
+          f"{float(cos.mean()):.4f}, min {float(cos.min()):.4f}")
+    profile_forward(model, docs[srcs[0]], kname)
     return launches, svc, [docs[s] for s in srcs[:-1]] + [new[srcs[-1]]]
 
 
@@ -536,6 +636,47 @@ def flash_record(a, kw, launches):
         "library_ms": library_ms}
 
 
+def ssd_record(a, kw, launches):
+    """The SSD kernel against its plain version (the sequential scan) at
+    one layer's inputs of a 64-document batch; no single PyTorch call
+    computes the scan, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    x, a_log, b, c, dt = a
+    ms, got = timed(lambda: kssd.ssd_scan_cuda(x, a_log, b, c, dt), REPS)
+    plain_ms, want = timed(lambda: ref.ssd_scan_ref(x, a_log, b, c, dt), 1)
+    check(bool(torch.isfinite(got.float()).all()),
+          "ssd_scan gave a non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=BF16_TOL,
+                         atol=BF16_TOL),
+          f"ssd_scan differs from its plain version by {err}")
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    es = x.element_size()
+    nbytes = (2 * B * S * H * P * es + 2 * B * S * G * N * es
+              + B * S * H * 4 + H * 4)
+    # the chunked algorithm at the kernel's chunk of 64, causal half of
+    # the quadratic terms: C.state and the state update (2 S N P each),
+    # C B^T and M x over the S (Q + 1) / 2 pairs of each chunk
+    Q = 64
+    flops = float(B * H) * (4 * S * N * P + S * (Q + 1) * (N + P))
+    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    print(f"ssd_scan: x {tuple(x.shape)} {x.dtype}, B/C {tuple(b.shape)}: "
+          f"{ms:.4f} ms (plain {plain_ms:.2f} ms, bound {bound:.4f} ms: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, which take "
+          f"{flops / PEAK_F32_FLOPS * 1e3:.3f} ms at the float32 CUDA-core "
+          f"peak), max |err| {err:.3g}")
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:69",
+        "launches": launches, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -562,29 +703,49 @@ def main() -> int:
 
     # each kernel's first inputs on each path, for the comparisons
     captured = {}
-    index_launches = index_path(args, captured)
-    records = [bucket_search_record(captured.pop("bucket_search")[1],
-                                    index_launches["bucket_search"]),
-               bucket_gather_record(*captured.pop("bucket_gather"),
-                                    index_launches["bucket_gather"])]
-    print(f"index path peak device memory "
+    index_launches, idx, data = index_path(args, captured)
+    records = {
+        "bucket_search": bucket_search_record(
+            captured.pop("bucket_search")[1],
+            index_launches["bucket_search"]),
+        "bucket_gather": bucket_gather_record(
+            *captured.pop("bucket_gather"), index_launches["bucket_gather"])}
+    lsh_launches = lsh_hash_path(idx, data, captured)
+    records["lsh_hash"] = lsh_hash_record(*captured.pop("lsh_hash"),
+                                          lsh_launches, idx)
+    print(f"index and hash paths peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del idx, data
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    launches, svc, query_tokens = retrieval_path(args, captured)
-    records.append(flash_record(*captured.pop("flash_attention"),
-                                launches["flash_attention"]))
+    launches, svc, query_tokens = retrieval_path(args, captured, "gemma-7b")
+    records["flash_attention"] = flash_record(
+        *captured.pop("flash_attention"), launches["flash_attention"])
     # the full scan at the embedder's width, against its plain version
-    bucket_search_record(captured.pop("bucket_search_wide")[1],
+    bucket_search_record(captured.pop("bucket_search_gemma-7b")[1],
                          launches["bucket_search"])
     wide_scan_checks(svc, query_tokens)
-    print(f"retrieval path peak device memory "
+    print(f"gemma-7b retrieval path peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del svc, query_tokens
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    launches, svc, _ = retrieval_path(args, captured, "mamba2-130m")
+    records["ssd_scan"] = ssd_record(*captured.pop("ssd_scan"),
+                                     launches["ssd_scan"])
+    bucket_search_record(captured.pop("bucket_search_mamba2-130m")[1],
+                         launches["bucket_search"])
+    print(f"mamba2-130m retrieval path peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; total "
           f"{time.perf_counter() - t_start:.0f} s")
+    del svc
 
     print(card)
-    print(json.dumps({"kernels": records}))
+    order = ("bucket_search", "bucket_gather", "flash_attention", "ssd_scan",
+             "lsh_hash")
+    print(json.dumps({"kernels": [records[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name, "count": count}}))
     return 0

@@ -1,8 +1,9 @@
 """Architecture configs of the zoo (``--arch <id>``), as far as ported.
 
 The registry keeps the reference's ids and aliases.  The dense attention
-archs (gemma-7b, codeqwen1.5-7b, phi3-mini-3.8b, mistral-nemo-12b) have
-their configs here; an arch whose blocks are not ported yet raises
+archs (gemma-7b, codeqwen1.5-7b, phi3-mini-3.8b, mistral-nemo-12b) and
+the attention-free mamba2-130m have their configs here; an arch whose
+blocks are not ported yet raises
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -32,8 +33,6 @@ _ALIASES.update({
 
 # arch -> the ROADMAP item (Queue 1, item 11) that ports its blocks
 _NOT_PORTED = {
-    "mamba2_130m": "11.1 (the mamba2 family: models/ssm.py, "
-                   "causal_conv1d, ssd_scan_pallas)",
     "granite_moe_1b_a400m": "11.4 (MoE)",
     "deepseek_v2_lite_16b": "11.4 (MLA and MoE)",
     "recurrentgemma_2b": "11.4 (RG-LRU and local attention)",

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashing import StackedHashParams
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.transformer import Transformer
 
 FIELDS = ("A", "b", "alpha", "beta", "alpha_cauchy", "pack_mult", "pack_add")
@@ -61,8 +61,11 @@ def model_params_from_arrays(tree: dict, cfg: ModelConfig, device=None
     with every leaf stacked over the segment's ``repeat`` copies on axis
     0; copy r of block j is the port's layer r * len(kinds) + j of that
     segment.  The tied embedding table doubles as the head; an untied
-    config brings ``tree["lm_head"]``.  ``device`` is ``cuda`` unless
-    given."""
+    config brings ``tree["lm_head"]``.  An ATTN block carries
+    ``norm_mix``, ``attn``, ``norm_mlp`` and ``mlp``; an SSM block
+    ``norm_mix`` and ``ssm`` (``w_in``, ``conv/{w, b}``, ``a_log``,
+    ``dt_bias``, ``d_skip``, ``norm_scale``, ``w_out``) and no MLP.
+    ``device`` is ``cuda`` unless given."""
     model = Transformer(cfg, device)
 
     def put(dst: torch.Tensor, a) -> None:
@@ -82,6 +85,14 @@ def model_params_from_arrays(tree: dict, cfg: ModelConfig, device=None
             for j in range(unit):
                 p, b = stacked[f"b{j}"], blocks[r * unit + j]
                 put(b.norm_mix.scale, p["norm_mix"]["scale"][r])
+                if seg.kinds[j] == BlockKind.SSM:
+                    s = p["ssm"]
+                    for w in ("w_in", "a_log", "dt_bias", "d_skip",
+                              "norm_scale", "w_out"):
+                        put(getattr(b.ssm, w), s[w][r])
+                    put(b.ssm.conv.w, s["conv"]["w"][r])
+                    put(b.ssm.conv.b, s["conv"]["b"][r])
+                    continue
                 put(b.norm_mlp.scale, p["norm_mlp"]["scale"][r])
                 for w in ("wq", "wk", "wv", "wo"):
                     put(getattr(b.attn, w), p["attn"][w][r])

@@ -1,4 +1,5 @@
-"""Dispatch around the kernels: the per-shard bucket scan, and attention.
+"""Dispatch around the kernels: the per-shard bucket scan, attention, the
+SSD scan and the p-stable hash.
 
 ``bucket_search`` takes the typed ``QueryBatch``/``StoreView`` surface
 (keyword-only, every tensor with a leading shard axis) and dispatches on
@@ -23,6 +24,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.bucket_search import (bucket_gather_cuda,
                                                bucket_search_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.lsh_hash import lsh_hash_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.kernels.types import QueryBatch, StoreView
 
 _M32 = 0xFFFFFFFF
@@ -179,3 +182,19 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     reference pads Sq and Sk to its 128-row tiles here; the kernel takes
     any length, so nothing is padded."""
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+
+
+def ssd_scan(x, a_log, b, c, dt):
+    """Mamba-2 SSD scan, x (B, S, H, P), b, c (B, S, G, N), dt (B, S, H),
+    a_log (H,) -> y (B, S, H, P): the kernel on CUDA tensors, its plain
+    version on CPU tensors.  The reference repeats B and C to every head
+    and pads S to its 128-step chunks here; the kernel reads each head's
+    group and masks the last chunk, so nothing is copied."""
+    return ssd_scan_cuda(x, a_log, b, c, dt)
+
+
+def lsh_hash(x, a, b, *, w: float):
+    """floor((x @ a + b) / w) -> int32 (n, K): the kernel on CUDA tensors,
+    its plain version on CPU tensors.  The reference pads n to 128 rows
+    and K to 128 lanes here; the kernel takes any n and K."""
+    return lsh_hash_cuda(x, a, b, w=w)

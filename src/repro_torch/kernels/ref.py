@@ -5,7 +5,9 @@ ordinary tensor operations: the CPU tests run them, and on the card they
 are the yardstick each kernel is held against.  The full scan walks the
 point axis in chunks and the gather walks span offsets, each carrying a
 running top-K, so both also run at the full store size on the card (the
-unchunked (R, L, N) match tensor would need gigabytes per shard).
+unchunked (R, L, N) match tensor would need gigabytes per shard).  The
+SSD scan's plain version is the reference's sequential recurrence, the
+function the chunked kernel computes in another order of rounding.
 
 Top-K selection is exact in (dist^2, gid) lex order: a non-negative
 float32 orders like its bit pattern, so ``bits(d2) << 32 | gid`` is one
@@ -167,3 +169,41 @@ def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None):
                           device=q.device).tril()
         s = s.masked_fill(~keep, -1e30)
     return torch.matmul(torch.softmax(s, dim=-1), vq).to(q.dtype)
+
+
+def ssd_scan_ref(x, a_log, b, c, dt):
+    """Mamba-2 SSD scan, sequential (plain version of ``ssd_scan_cuda``).
+
+    x (B, S, H, P); a_log (H,) float32, the log of the positive decay
+    rate; b, c (B, S, G, N), head h reading group h // (H // G); dt
+    (B, S, H) float32.  Step by step, in float32:
+        state_t = exp(a dt_t) state_{t-1} + (x_t dt_t) b_t^T,  a = -exp(a_log)
+        y_t     = state_t . c_t
+    and y (B, S, H, P) in x's dtype.  The groups are broadcast one step
+    at a time: the reference repeats B and C to every head up front.
+    """
+    B, S, H, P = x.shape
+    rep = H // b.shape[2]
+    a = -torch.exp(a_log.float())
+    decay = torch.exp(a * dt.float())                     # (B, S, H)
+    state = torch.zeros((B, H, P, b.shape[3]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(S):
+        bt = b[:, t].float().repeat_interleave(rep, dim=1)  # (B, H, N)
+        ct = c[:, t].float().repeat_interleave(rep, dim=1)
+        xdt = x[:, t].float() * dt[:, t, :, None].float()   # (B, H, P)
+        state = (state * decay[:, t, :, None, None]
+                 + xdt[..., :, None] * bt[..., None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ct))
+    if not ys:
+        return torch.empty_like(x)
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def lsh_hash_ref(x, a, b, *, w: float):
+    """floor((x @ a + b) / w) as int32 (plain version of
+    ``lsh_hash_cuda``), in float32."""
+    proj = (torch.matmul(x.float(), a.float()) + b.float()) / torch.tensor(
+        w, dtype=torch.float32)
+    return torch.floor(proj).to(torch.int32)

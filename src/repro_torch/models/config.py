@@ -2,9 +2,10 @@
 
 One ModelConfig describes any of the zoo's families through a block
 pattern: layers are grouped into repeated *segments* of a unit of block
-kinds.  The port runs the dense attention family (``BlockKind.ATTN``);
-the other kinds are described here so that every config of the zoo can
-be read, and ``models.transformer`` refuses what it cannot run yet.
+kinds.  The port runs the dense attention family (``BlockKind.ATTN``)
+and the Mamba-2 family (``BlockKind.SSM``); the other kinds are
+described here so that every config of the zoo can be read, and
+``models.transformer`` refuses what it cannot run yet.
 
 ``pdtype``/``cdtype`` are torch dtypes.  The port imports nothing of the
 reference package.
@@ -119,6 +120,10 @@ class ModelConfig:
     @property
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+    def is_attention_free(self) -> bool:
+        return all(k in (BlockKind.SSM,)
+                   for s in self.segments for k in s.kinds)
 
 
 def dense_stack(n_layers: int, kind: BlockKind = BlockKind.ATTN,

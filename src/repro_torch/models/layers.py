@@ -1,4 +1,5 @@
-"""Shared model layers: init, RMSNorm, RoPE, the gated MLP, embeddings.
+"""Shared model layers: init, RMSNorm, RoPE, the gated MLP, embeddings,
+the causal depthwise conv of the Mamba-2 block.
 
 Plain functions on tensors, and ``nn.Module``s that hold the parameters
 and call them.  Weights keep the reference's layout, (d_in, d_out) used
@@ -122,3 +123,46 @@ def unembed(head: torch.Tensor, x: torch.Tensor, softcap: float = 0.0):
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise short conv (the Mamba-2 frontend)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(p, x: torch.Tensor, state: torch.Tensor | None = None):
+    """x: (B, S, C) depthwise causal conv of width W with p.w (W, C) and
+    p.b (C,): y_t = sum_i w_i x_{t-W+1+i} + b, a shifted sum over the W
+    taps in float32 (not ``F.conv1d``: cuDNN would run float32 in TF32),
+    cast back to x's dtype.
+
+    state: (B, W-1, C) trailing context of earlier steps, or None for
+    zero left-padding (the full-sequence form the port runs).  Returns
+    (y, new_state).
+    """
+    w = p.w.float()                                     # (W, C)
+    W = w.shape[0]
+    B, S, C = x.shape
+    if state is None:
+        state = torch.zeros((B, W - 1, C), dtype=torch.float32,
+                            device=x.device)
+    xp = torch.cat([state.float(), x.float()], dim=1)
+    y = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for i in range(W):
+        y = y + w[i] * xp[:, i:i + S]
+    y = y + p.b.float()
+    new_state = xp[:, S:] if W > 1 else state
+    return y.to(x.dtype), new_state.to(x.dtype)
+
+
+class CausalConv1d(nn.Module):
+    """Parameters of ``causal_conv1d``: w (W, C) and b (C,)."""
+
+    def __init__(self, channels: int, width: int, dtype, device=None):
+        super().__init__()
+        self.w = param(width, channels, dtype=dtype, device=device)
+        self.b = param(channels, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        """The reference's ``init_conv1d``: w normal / sqrt(width), b 0."""
+        he_init_(self.w, generator, fan_in=self.w.shape[0])
+        self.b.zero_()

@@ -1,0 +1,96 @@
+"""Mamba-2 block (SSD): in-proj -> causal conv -> SSD scan -> gated norm ->
+out-proj.
+
+The full-sequence form: the scan is ``kernels/ops.ssd_scan``, the
+hand-written chunked kernel on the card and the sequential plain version
+on the CPU.  The decode path with its carried (conv, ssm) state
+(``_ssd_recurrent`` and ``init_ssm_state`` of the reference) waits for
+the decode and cache part of the port (ROADMAP Queue 1 item 11.3).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (CausalConv1d, causal_conv1d,
+                                       he_init_, param)
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    return s, d_inner, d_inner // s.head_dim
+
+
+class SSM(nn.Module):
+    """Parameters of one Mamba-2 mixer.  ``a_log``, ``dt_bias`` and
+    ``d_skip`` are float32 whatever the config's parameter dtype, as the
+    reference keeps them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        s, d_inner, H = _dims(cfg)
+        dt = cfg.pdtype
+        conv_ch = d_inner + 2 * s.n_groups * s.d_state
+        # projects to [z (gate), x, B, C, dt]
+        self.w_in = param(cfg.d_model,
+                          2 * d_inner + 2 * s.n_groups * s.d_state + H,
+                          dtype=dt, device=device)
+        self.conv = CausalConv1d(conv_ch, s.d_conv, dt, device)
+        self.a_log = param(H, dtype=torch.float32, device=device)
+        self.dt_bias = param(H, dtype=torch.float32, device=device)
+        self.d_skip = param(H, dtype=torch.float32, device=device)
+        self.norm_scale = param(d_inner, dtype=dt, device=device)
+        self.w_out = param(d_inner, cfg.d_model, dtype=dt, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        """The reference's ``init_ssm``: in/out projections normal /
+        sqrt(fan_in), a_log = log(linspace(1, 16, H)), dt_bias 0, d_skip
+        1, norm scale 1 (the conv resets itself)."""
+        H = self.a_log.shape[0]
+        he_init_(self.w_in, generator)
+        self.a_log.copy_(torch.log(torch.linspace(1.0, 16.0, H)))
+        self.dt_bias.zero_()
+        self.d_skip.fill_(1.0)
+        self.norm_scale.fill_(1.0)
+        he_init_(self.w_out, generator, fan_in=self.w_out.shape[0])
+
+    def forward(self, x):
+        return ssm_block(self, self.cfg, x)
+
+
+def ssm_block(p, cfg: ModelConfig, xin: torch.Tensor) -> torch.Tensor:
+    """xin: (B, S, d) -> (B, S, d), the full sequence from a zero state."""
+    s, d_inner, H = _dims(cfg)
+    B, S, _ = xin.shape
+    G, N, P = s.n_groups, s.d_state, s.head_dim
+
+    zxbcdt = xin @ p.w_in
+    z, xbc, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * G * N, H],
+                                 dim=-1)
+    xbc, _ = causal_conv1d(p.conv, xbc)
+    xbc = F.silu(xbc)
+    x, b, c = torch.split(xbc, [d_inner, G * N, G * N], dim=-1)
+    # softplus as jax computes it, log(1 + e^v) everywhere (F.softplus
+    # switches to the identity above 20)
+    dt = torch.logaddexp(dt_raw.float() + p.dt_bias,
+                         torch.zeros((), device=xin.device))   # (B, S, H)
+
+    # views of xbc: the kernel reads them through their strides
+    xh = x.view(B, S, H, P)
+    bh = b.view(B, S, G, N)
+    ch = c.view(B, S, G, N)
+    y = ops.ssd_scan(xh, p.a_log, bh, ch, dt)
+    y = y + xh * p.d_skip[None, None, :, None].to(y.dtype)
+    y = y.reshape(B, S, d_inner)
+
+    # gated RMSNorm (Mamba-2), in float32
+    yf = y.float() * F.silu(z.float())
+    var = torch.mean(yf * yf, dim=-1, keepdim=True)
+    yf = yf * torch.rsqrt(var + cfg.norm_eps)
+    y = (yf * p.norm_scale.float()).to(xin.dtype)
+    return y @ p.w_out

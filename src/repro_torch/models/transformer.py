@@ -1,4 +1,5 @@
-"""Model assembly: the decoder-only LM of the dense attention family.
+"""Model assembly: the decoder-only LM of the dense attention family and
+the attention-free Mamba-2 family.
 
 A ``Transformer`` holds the embedding table, one ``ModuleList`` of blocks
 per segment of the config (the reference stacks each segment's per-layer
@@ -6,11 +7,11 @@ parameters on a leading axis and scans over them; here the segment is a
 loop over its layers), the final norm, and an untied head where the
 config has one.  ``forward`` runs the full sequence with no cache.
 
-The port runs ATTN blocks only.  A config with other block kinds, MoE,
-an encoder or a modality frontend raises ``NotImplementedError`` (the
-config registry names the ROADMAP item of each arch); ``prefill`` and
-``decode_step`` wait for the decode and cache path (ROADMAP Queue 1 item
-11.3).
+The port runs ATTN and SSM blocks.  A config with other block kinds,
+MoE, an encoder or a modality frontend raises ``NotImplementedError``
+(the config registry names the ROADMAP item of each arch); ``prefill``
+and ``decode_step`` wait for the decode and cache path (ROADMAP Queue 1
+item 11.3).
 """
 from __future__ import annotations
 
@@ -22,16 +23,17 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.layers import (MLP, RMSNorm, embed, he_init_,
                                        param, unembed)
+from repro_torch.models.ssm import SSM
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every part of ``cfg`` is ported."""
-    dense = all(k == BlockKind.ATTN and not seg.moe
-                for seg in cfg.segments for k in seg.kinds)
-    if not dense or cfg.encoder_layers or cfg.frontend != "none":
+    ported = all(k in _BLOCKS and not seg.moe
+                 for seg in cfg.segments for k in seg.kinds)
+    if not ported or cfg.encoder_layers or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only ATTN blocks without MoE, encoder or "
-            f"frontend are ported to repro_torch yet (ROADMAP Queue 1 "
+            f"{cfg.name}: only ATTN and SSM blocks without MoE, encoder "
+            f"or frontend are ported to repro_torch yet (ROADMAP Queue 1 "
             f"item 11)")
 
 
@@ -51,6 +53,21 @@ class Block(nn.Module):
         return x + self.mlp(self.norm_mlp(x))
 
 
+class SSMBlock(nn.Module):
+    """SSM block (mamba2): x + ssm(norm_mix(x)), no MLP sub-block."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.norm_mix = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.pdtype, device)
+        self.ssm = SSM(cfg, device)
+
+    def forward(self, x):
+        return x + self.ssm(self.norm_mix(x))
+
+
+_BLOCKS = {BlockKind.ATTN: Block, BlockKind.SSM: SSMBlock}
+
+
 class Transformer(nn.Module):
     """Parameters of a ported config on ``device`` (``cuda`` unless
     given; raises without a card); uninitialised until
@@ -65,16 +82,18 @@ class Transformer(nn.Module):
         self.embed_table = param(cfg.vocab_padded, d, dtype=dt,
                                  device=device)
         self.final_norm = RMSNorm(d, cfg.norm_eps, dt, device)
+        # layer r * len(kinds) + j of a segment is copy r of its block j
         self.segments = nn.ModuleList(
-            nn.ModuleList(Block(cfg, device)
-                          for _ in range(seg.repeat * len(seg.kinds)))
+            nn.ModuleList(_BLOCKS[kind](cfg, device)
+                          for _ in range(seg.repeat) for kind in seg.kinds)
             for seg in cfg.segments)
         self.lm_head = (None if cfg.tie_embeddings else
                         param(d, cfg.vocab_padded, dtype=dt, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's distributions: embedding normal * 0.02, every
-        projection normal / sqrt(fan_in), norm scales 1."""
+        projection normal / sqrt(fan_in), norm scales 1 (and the SSM's
+        own, ``SSM.reset_parameters``)."""
         draw = torch.randn(self.embed_table.shape, generator=generator,
                            device=generator.device)
         self.embed_table.copy_(draw * 0.02)
@@ -120,7 +139,7 @@ def _lm_head(model: Transformer, x):
 @torch.no_grad()
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab_padded) f32.  (The
-    reference also returns the MoE balance loss, which the dense family
-    does not have.)"""
+    reference also returns the MoE balance loss, which the ported
+    families do not have.)"""
     x = model.final_norm(hidden_states(model, tokens))
     return _lm_head(model, x)

@@ -67,10 +67,12 @@ class RetrievalService:
               scheme: Scheme = Scheme.LAYERED, seed: int = 0,
               bucket_size: int = 64, max_latency_ms: float = 25.0,
               k_neighbors: int = 1, n_tables: int = 1,
-              pipelined: bool = False):
+              pipelined: bool = False, slack: float = 4.0):
         """Embed ``doc_tokens`` and build the index over them.  ``device``
         is the index's (``cuda`` unless given); the model stays where it
-        is."""
+        is.  ``slack`` is the index's capacity headroom over an even
+        share of the shards (``DistributedLSHIndex``'s); at ``n_shards``
+        no skew of the embeddings can overflow a shard."""
         if pipelined:
             raise NotImplementedError(
                 "the pipelined front-end is not ported yet (ROADMAP Queue "
@@ -79,7 +81,7 @@ class RetrievalService:
         lsh = LSHConfig(d=int(docs.shape[1]), k=k, W=W, r=r, c=c, L=L,
                         n_shards=n_shards, scheme=scheme, seed=seed,
                         n_tables=n_tables)
-        index = DistributedLSHIndex(lsh, device=device,
+        index = DistributedLSHIndex(lsh, device=device, slack=slack,
                                     k_neighbors=k_neighbors)
         index.build(docs)
         service = ShardedLSHService(index, bucket_size=bucket_size,

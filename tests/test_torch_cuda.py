@@ -11,7 +11,12 @@ each dot with fused multiply-adds, the plain versions with separate
 multiplies and adds), and the CSR gather BITWISE equal to the full-scan
 kernel at every width; flash attention -- rtol = atol = 2e-5 in float32
 (the reference's own kernel tolerance, ``tests/test_kernels.py``) and
-0.05 in bf16 (an output rounded to bf16 may land one bf16 step apart).
+0.05 in bf16 (an output rounded to bf16 may land one bf16 step apart);
+the SSD scan -- the chunked kernel against the sequential plain version
+at rtol = atol = 2e-4 in float32 (the reference's chunked-vs-sequential
+tolerance) and 0.05 in bf16; the hash -- agreement >= 0.999 and
+|diff| <= 1 (a floor may flip within float rounding of an integer, as
+the reference's test allows).
 The case builders here are shared with ``test_torch_bucket_search.py``.
 """
 import numpy as np
@@ -21,6 +26,8 @@ import torch
 from repro_torch.core import store_layout
 from repro_torch.kernels import bucket_search as kbs
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import lsh_hash as klh
+from repro_torch.kernels import ssd_scan as kssd
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.types import QueryBatch, StoreView
 
@@ -353,3 +360,216 @@ def test_reduced_model_on_the_card_answers_as_on_the_cpu():
     torch.cuda.synchronize()
     assert kfa.flash_attention_cuda.launches == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+def _ssd(seed, B, S, H, G, P, N, dtype, dev, mamba_decay=False):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g) * 0.5
+    b = torch.randn((B, S, G, N), generator=g) * 0.3
+    c = torch.randn((B, S, G, N), generator=g) * 0.3
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    if mamba_decay:     # mamba2's own rates: a = -1 .. -16
+        a_log = torch.log(torch.linspace(1.0, 16.0, H))
+    else:
+        a_log = torch.rand((H,), generator=g) * 2.5 - 2.0
+    return (x.to(dev, dtype), a_log.to(dev), b.to(dev, dtype),
+            c.to(dev, dtype), dt.to(dev))
+
+
+def _ssd_close(got, want):
+    tol = 2e-4 if want.dtype == torch.float32 else 0.05
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    np.testing.assert_allclose(got.float().cpu(), want.float().cpu(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [128, 1000, 1024])
+@pytest.mark.parametrize("grouped", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mamba_decay", [False, True])
+def test_ssd_kernel_matches_plain_version(S, grouped, dtype, mamba_decay):
+    """mamba2's head (P = 64, N = 128), G = 1 or G = H, ragged S."""
+    dev = _cuda()
+    H = 4
+    args = _ssd(S, 2, S, H, 1 if grouped else H, 64, 128, dtype, dev,
+                mamba_decay)
+    want = ref.ssd_scan_ref(*args)
+    before = kssd.ssd_scan_cuda.launches
+    got = kssd.ssd_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert kssd.ssd_scan_cuda.launches == before + 1
+    _ssd_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N", [(4, 4), (16, 16), (32, 16), (8, 8),
+                                 (100, 64), (128, 128)])
+def test_ssd_kernel_other_widths(P, N):
+    dev = _cuda()
+    args = _ssd(P + N, 1, 300, 2, 2, P, N, torch.float32, dev)
+    _ssd_close(kssd.ssd_scan_cuda(*args), ref.ssd_scan_ref(*args))
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_carries_an_impulse_past_the_first_chunk():
+    dev = _cuda()
+    B, S, H, P, N = 1, 256, 1, 4, 4
+    x = torch.zeros((B, S, H, P), device=dev)
+    x[0, 0] = 1.0
+    a_log = torch.tensor([-1.0], device=dev)
+    b = torch.full((B, S, H, N), 0.5, device=dev)
+    dt = torch.full((B, S, H), 0.1, device=dev)
+    got = kssd.ssd_scan_cuda(x, a_log, b, b, dt)
+    want = ref.ssd_scan_ref(x, a_log, b, b, dt)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-6)
+    assert float(got[0, 200, 0, 0].abs()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_strided_views(dtype):
+    """x, B and C as the SSM block passes them: views of one (B, S, ch)
+    conv output; dt a transposed view."""
+    dev = _cuda()
+    B, S, H, P, G, N = 2, 200, 4, 32, 2, 16
+    g = torch.Generator().manual_seed(1)
+    xbc = (torch.randn((B, S, H * P + 2 * G * N), generator=g) * 0.4).to(
+        dev, dtype)
+    x, b, c = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    x, b, c = x.view(B, S, H, P), b.view(B, S, G, N), c.view(B, S, G, N)
+    dt = torch.nn.functional.softplus(torch.randn((B, H, S), generator=g))
+    dt = dt.to(dev).transpose(1, 2)
+    a_log = torch.zeros(H, device=dev)
+    got = kssd.ssd_scan_cuda(x, a_log, b, c, dt)
+    assert got.is_contiguous()
+    want = ref.ssd_scan_ref(x.contiguous(), a_log, b.contiguous(),
+                            c.contiguous(), dt.contiguous())
+    _ssd_close(got, want)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_rejects_bad_inputs():
+    dev = _cuda()
+    x, a_log, b, c, dt = _ssd(0, 1, 16, 4, 2, 16, 8, torch.float32, dev)
+    with pytest.raises(ValueError, match="head width"):
+        wide = torch.zeros((1, 16, 4, 130), device=dev)
+        kssd.ssd_scan_cuda(wide, a_log, b, c, dt)
+    big = torch.zeros((1, 16, 2, 512), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        kssd.ssd_scan_cuda(x, a_log, big, big, dt)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kssd.ssd_scan_cuda(x, a_log.cpu(), b, c, dt)
+    with pytest.raises(ValueError, match="share"):
+        kssd.ssd_scan_cuda(x, a_log, b.bfloat16(), c, dt)
+
+
+# ---------------------------------------------------------------------------
+# p-stable hash
+# ---------------------------------------------------------------------------
+
+def _hash_close(got, want):
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    got, want = got.cpu().long(), want.cpu().long()
+    assert float((got == want).double().mean()) >= 0.999
+    assert int((got - want).abs().max()) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,K", [(1000, 64, 20), (257, 100, 130),
+                                   (3, 768, 7), (4097, 64, 256),
+                                   (130, 50, 12)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lsh_hash_kernel_matches_plain_version(n, d, K, dtype):
+    dev = _cuda()
+    g = torch.Generator().manual_seed(n + d + K)
+    x = torch.randn((n, d), generator=g).to(dev, dtype)
+    a = torch.randn((d, K), generator=g).to(dev)
+    b = (torch.rand((K,), generator=g) * 0.5).to(dev)
+    before = klh.lsh_hash_cuda.launches
+    got = klh.lsh_hash_cuda(x, a, b, w=0.5)
+    torch.cuda.synchronize()
+    assert klh.lsh_hash_cuda.launches == before + 1
+    _hash_close(got, ref.lsh_hash_ref(x, a, b, w=0.5))
+    # x read through its strides: a transposed view
+    xt = x.t().contiguous().t()
+    _hash_close(klh.lsh_hash_cuda(xt, a, b, w=0.5), got)
+
+
+@pytest.mark.gpu
+def test_lsh_hash_kernel_agrees_with_the_index_hash():
+    dev = _cuda()
+    from repro_torch.core import DistributedLSHIndex, LSHConfig
+    from repro_torch.core.hashing import hash_h
+    cfg = LSHConfig(d=64, k=10, W=1.0, r=0.3, c=2.0, L=4, n_shards=2,
+                    n_tables=2)
+    params = DistributedLSHIndex(cfg, device=dev).stacked_params
+    x = torch.randn((5000, 64), generator=torch.Generator().manual_seed(0))
+    x = (x / 8.0).to(dev)
+    A = torch.cat([params.table(t).A for t in range(2)], dim=1)
+    b = torch.cat([params.table(t).b for t in range(2)])
+    got = ops.lsh_hash(x, A, b, w=cfg.W)
+    for t in range(2):
+        _hash_close(got[:, 10 * t:10 * (t + 1)],
+                    hash_h(params.table(t), x, cfg.W))
+
+
+@pytest.mark.gpu
+def test_lsh_hash_kernel_rejects_bad_inputs():
+    dev = _cuda()
+    x = torch.zeros((4, 8), device=dev)
+    a = torch.zeros((8, 3), device=dev)
+    b = torch.zeros((3,), device=dev)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        klh.lsh_hash_cuda(x, a.cpu(), b, w=1.0)
+    with pytest.raises(ValueError, match="float32"):
+        klh.lsh_hash_cuda(x, a.half(), b, w=1.0)
+    with pytest.raises(ValueError, match="positive"):
+        klh.lsh_hash_cuda(x, a, b, w=-1.0)
+    assert klh.lsh_hash_cuda(x[:0], a, b, w=1.0).shape == (0, 3)
+
+
+# ---------------------------------------------------------------------------
+# reduced mamba2 on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_reduced_mamba2_on_the_card_answers_as_on_the_cpu():
+    """Reduced mamba2 (float32) through the SSD kernel on the card against
+    the plain version on the CPU, the same weights: one launch per layer,
+    logits within rtol = atol = 1e-4; then its retrieval service gives
+    the CPU's embeddings within 1e-4 and the same exchanges and drops."""
+    dev = _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.serving import RetrievalService, embed_texts
+    cfg = get_config("mamba2-130m", reduced=True)
+    cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    card = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                       device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 300)))
+    want = forward(cpu, tokens)
+    before = kssd.ssd_scan_cuda.launches
+    got = forward(card, tokens.to(dev))
+    torch.cuda.synchronize()
+    assert kssd.ssd_scan_cuda.launches == before + cfg.n_layers
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    docs = np.random.default_rng(1).integers(0, cfg.vocab, (128, 40))
+    lsh = dict(n_shards=8, bucket_size=64, r=0.2, L=8, k=8, W=0.5)
+    svc_cpu = RetrievalService.build(cfg, cpu, docs, device="cpu", **lsh)
+    svc_card = RetrievalService.build(cfg, card, docs, device=dev, **lsh)
+    np.testing.assert_allclose(embed_texts(card, docs[:64]).cpu(),
+                               embed_texts(cpu, docs[:64]), rtol=1e-4,
+                               atol=1e-4)
+    for svc in (svc_cpu, svc_card):
+        g, d, _ = svc.query(docs[:64])
+        assert g.shape == (64, 1) and svc.service.stats.drops == 0
+        assert svc.index.a2a.calls == 3

@@ -34,7 +34,9 @@ def test_importing_the_port_loads_no_jax():
     mods = list(_modules())
     for m in ("repro_torch.core.index", "repro_torch.models.transformer",
               "repro_torch.serving.retrieval", "repro_torch.launch.serve",
-              "repro_torch.kernels.flash_attention"):
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.ssd_scan", "repro_torch.kernels.lsh_hash",
+              "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -118,6 +120,20 @@ def test_serve_cli_without_device_needs_a_card():
                   lambda: serve.main(args + ["--device", "cpu"]))
 
 
+def test_mamba2_model_and_serve_cli_without_device_need_a_card():
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+    cfg = get_config("mamba2-130m", reduced=True)
+    gen = lambda: torch.Generator().manual_seed(0)
+    _needs_a_card(lambda: init_params(cfg, generator=gen()),
+                  lambda: init_params(cfg, generator=gen(), device="cpu"))
+    args = ["--arch", "mamba2-130m", "--docs", "16", "--batches", "1",
+            "--batch-size", "8"]
+    _needs_a_card(lambda: serve.main(args),
+                  lambda: serve.main(args + ["--device", "cpu"]))
+
+
 def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     """On a CPU tensor the wrappers run the plain version and count no
     launch."""
@@ -144,3 +160,18 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     out = kfa.flash_attention_cuda(q, kv, kv, causal=True)
     assert kfa.flash_attention_cuda.launches == before
     assert out.shape == q.shape and out.dtype == q.dtype
+
+    from repro_torch.kernels import lsh_hash as klh
+    from repro_torch.kernels import ssd_scan as kssd
+    x = torch.randn((2, 7, 4, 8), generator=g)
+    bc = torch.randn((2, 7, 2, 16), generator=g)
+    dt = torch.rand((2, 7, 4), generator=g)
+    before = kssd.ssd_scan_cuda.launches
+    y = kssd.ssd_scan_cuda(x, torch.zeros(4), bc, bc, dt)
+    assert kssd.ssd_scan_cuda.launches == before
+    assert y.shape == x.shape and y.dtype == x.dtype
+    before = klh.lsh_hash_cuda.launches
+    h = klh.lsh_hash_cuda(q[0, 0], torch.randn((16, 5), generator=g),
+                          torch.zeros(5), w=1.0)
+    assert klh.lsh_hash_cuda.launches == before
+    assert h.shape == (5, 5) and h.dtype == torch.int32

@@ -1,7 +1,7 @@
 """The whole slice: the port's retrieval service against the reference's.
 
-The reference ``RetrievalService`` (gemma-7b's reduced config, float32)
-runs at S = 8 in a subprocess with 8 placeholder host devices, with
+The reference ``RetrievalService`` (gemma-7b's reduced config, float32,
+and mamba2-130m's in the ``mamba2`` cases) runs at S = 8 in a subprocess with 8 placeholder host devices, with
 ``serve.py``'s LSH settings, and dumps its weights, hash parameters,
 embeddings and answers; the port replays the same stream on the CPU with
 those weights (``convert.model_params_from_arrays``).  Checks:
@@ -37,6 +37,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import DistributedLSHIndex, LSHConfig, Scheme  # noqa
 from repro_torch.core.hashing import gamma  # noqa: E402
 from repro_torch.core.offsets import query_offsets  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 from repro_torch.serving import (RetrievalService,  # noqa: E402
                                  ShardedLSHService, embed_texts)
 from test_torch_cuda import one_torch_thread  # noqa: E402,F401
@@ -55,8 +56,9 @@ from repro.models import init_params
 from repro.serving import RetrievalService
 from repro.serving.retrieval import embed_texts
 
-out_dir, N_DOCS, N_NEW, SEQ, M, K, BUCKET = sys.argv[1], *map(int, sys.argv[2:])
-cfg = get_config("gemma-7b", reduced=True)
+out_dir, arch = sys.argv[1:3]
+N_DOCS, N_NEW, SEQ, M, K, BUCKET = map(int, sys.argv[3:])
+cfg = get_config(arch, reduced=True)
 params = jax.jit(init_params, static_argnums=1)(jax.random.PRNGKey(0), cfg)
 rng = np.random.default_rng(0)
 docs = rng.integers(0, cfg.vocab, (N_DOCS, SEQ)).astype(np.int32)
@@ -87,8 +89,7 @@ print("OK")
 """
 
 
-@pytest.fixture(scope="module")
-def ref(tmp_path_factory):
+def _run_reference(tmp_path_factory, arch):
     out = tmp_path_factory.mktemp("ref_retrieval")
     env = dict(os.environ)
     # one compute thread: the suite runs in parallel workers
@@ -99,11 +100,21 @@ def ref(tmp_path_factory):
     lsh = ", ".join(f"{k}={v!r}" for k, v in LSH.items())
     script = textwrap.dedent(_SCRIPT).format(lsh=lsh)
     proc = subprocess.run(
-        [sys.executable, "-c", script, str(out),
+        [sys.executable, "-c", script, str(out), arch,
          *map(str, (N_DOCS, N_NEW, SEQ, M, K, BUCKET))],
         capture_output=True, text=True, env=env, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     return dict(np.load(out / "retrieval.npz"))
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    return _run_reference(tmp_path_factory, "gemma-7b")
+
+
+@pytest.fixture(scope="module")
+def ref_mamba2(tmp_path_factory):
+    return _run_reference(tmp_path_factory, "mamba2-130m")
 
 
 def _tree(ref):
@@ -126,8 +137,8 @@ def _hash_arrays(ref):
     return ({f: ref["param_" + f] for f in convert.FIELDS}, ref["keys"])
 
 
-def _lsh_config():
-    return LSHConfig(d=get_config("gemma-7b", reduced=True).d_model,
+def _lsh_config(arch="gemma-7b"):
+    return LSHConfig(d=get_config(arch, reduced=True).d_model,
                      n_shards=8, scheme=Scheme.LAYERED, n_tables=1, **LSH)
 
 
@@ -137,16 +148,41 @@ def model(ref):
         _tree(ref), get_config("gemma-7b", reduced=True), device="cpu")
 
 
-def test_embeddings_match_reference(ref, model):
+@pytest.fixture(scope="module")
+def model_mamba2(ref_mamba2):
+    return convert.model_params_from_arrays(
+        _tree(ref_mamba2), get_config("mamba2-130m", reduced=True),
+        device="cpu")
+
+
+def _embeddings_match(ref, model):
     for tokens, want in ((ref["docs"], ref["emb_docs"]),
                          (ref["new"], ref["emb_new"])):
         got = embed_texts(model, tokens).numpy()
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_embeddings_match_reference(ref, model):
+    _embeddings_match(ref, model)
+
+
+def test_mamba2_embeddings_match_reference(ref_mamba2, model_mamba2):
+    _embeddings_match(ref_mamba2, model_mamba2)
+
+
 def test_service_on_reference_embeddings_gives_reference_gids(ref):
     """The index half of the slice, isolated from the embedder."""
-    idx = DistributedLSHIndex(_lsh_config(), device="cpu", k_neighbors=K)
+    _service_on_reference_embeddings(ref, "gemma-7b")
+
+
+def test_mamba2_service_on_reference_embeddings_gives_reference_gids(
+        ref_mamba2):
+    """The index at mamba2's embedding width, on its embeddings."""
+    _service_on_reference_embeddings(ref_mamba2, "mamba2-130m")
+
+
+def _service_on_reference_embeddings(ref, arch):
+    idx = DistributedLSHIndex(_lsh_config(arch), device="cpu", k_neighbors=K)
     convert.install(idx, *_hash_arrays(ref))
     idx.build(ref["emb_docs"])
     svc = ShardedLSHService(idx, bucket_size=BUCKET, k_neighbors=K)
@@ -210,8 +246,16 @@ def _check_differences(svc, emb, docs, got_g, got_d, want_g, want_d):
 
 
 def test_retrieval_service_end_to_end(ref, model):
+    _end_to_end(ref, model, "gemma-7b")
+
+
+def test_mamba2_retrieval_service_end_to_end(ref_mamba2, model_mamba2):
+    _end_to_end(ref_mamba2, model_mamba2, "mamba2-130m")
+
+
+def _end_to_end(ref, model, arch):
     svc = RetrievalService.build(
-        get_config("gemma-7b", reduced=True), model, ref["docs"],
+        get_config(arch, reduced=True), model, ref["docs"],
         n_shards=8, device="cpu", bucket_size=BUCKET, k_neighbors=K, **LSH)
     # the parameters LAYERED hashing reads, sampled by the port
     params, keys = _hash_arrays(ref)
@@ -239,6 +283,27 @@ def test_retrieval_service_end_to_end(ref, model):
     np.testing.assert_allclose(d1[same] ** 2, ref["q1_dist"][same] ** 2,
                                rtol=1e-4, atol=1e-4)
     svc.close()
+
+
+def test_mamba2_long_documents_need_the_lossless_slack():
+    """Mean-pooled embeddings of a random-weight mamba2 over 1,024-token
+    documents lie close together, so Layered LSH sends most documents to
+    one or two shards: the default slack of 4 overflows a shard's store,
+    a slack of n_shards cannot."""
+    cfg = get_config("mamba2-130m", reduced=True)
+    model = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    docs = np.random.default_rng(0).integers(0, cfg.vocab, (128, 1024))
+    emb = embed_texts(model, docs)
+    lsh = _lsh_config("mamba2-130m")
+    drops = {}
+    for slack in (4.0, 8.0):
+        idx = DistributedLSHIndex(lsh, device="cpu", slack=slack)
+        drops[slack] = idx.build(emb).drops
+    assert drops[4.0] > 0 and drops[8.0] == 0
+    svc = RetrievalService.build(cfg, model, docs[:16], device="cpu",
+                                 slack=8.0, **LSH)
+    assert svc.index.slack == 8.0 and svc.index.build_result.drops == 0
 
 
 def test_unported_paths_raise(ref, model):
