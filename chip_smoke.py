@@ -32,11 +32,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                kernel, 24 launches a forward), the index at d = 768.
 
 Each path runs with every launch count set to 0 just before it and read
-just after.  Each kernel is then held against its plain PyTorch version
-on the inputs its path gave it and timed with CUDA events, one serving
-bucket and one embedding forward are traced with torch.profiler, and the
-script prints one JSON line
-of kernel records and, last, ``{"ok": true, "device": {...}}``.  Any
+just after; the flash and SSD wrappers also count per design, and every
+launch of those two paths must go to their "tensor_core" designs, whose
+SASS must hold tensor-core (HMMA) instructions.  Each kernel is then
+held against its plain PyTorch version on the inputs its path gave it
+and timed with CUDA events, one serving bucket and one embedding forward
+are traced with torch.profiler, and the script prints one JSON line of
+kernel records and, last, ``{"ok": true, "device": {...}}``.  Any
 failed check raises: the exit code is then non-zero and the last line is
 not printed.  With no CUDA device it exits with code 2 before doing
 anything.
@@ -62,7 +64,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 IMAX = 2 ** 31 - 1
 BUCKETS = 4        # query buckets served per phase
-REPS = 5           # timed kernel runs
+REPS = 20          # timed kernel runs
 # the retrieval paths: serve.py's corpus and LSH settings, with documents
 # of 128 tokens for gemma-7b (serve.py's 32 would fill a quarter of one of
 # the flash kernel's 128-row tiles) and of 1,024 for mamba2-130m (8 of the
@@ -98,7 +100,9 @@ def card_line() -> str:
 
 
 def build_kernels():
-    """One nvcc per CUDA source, all started together."""
+    """One nvcc per CUDA source, all started together; prints each
+    kernel's registers, shared memory and spills (ptxas).  Returns the
+    library paths by source name."""
     from repro_torch.kernels import _build
     names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
@@ -107,9 +111,40 @@ def build_kernels():
     for name, (path, log) in zip(names, outs):
         print(f"built {name}: {path.name}")
         for line in log.splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if ("registers" in line or "smem" in line or "spill" in line
+                    or "Compiling entry" in line):
                 print("  " + line.strip())
-    return names
+    return {name: path for name, (path, _) in zip(names, outs)}
+
+
+def hmma_counts(libs):
+    """Tensor-core (HMMA) instructions in the SASS of each tensor-core
+    kernel (``cuobjdump --dump-sass`` of the toolkit that built them), by
+    source; each must have some."""
+    from repro_torch.kernels import _build
+    tool = str(Path(_build.nvcc()).parent / "cuobjdump")
+    counts = {}
+    for name, kernel in (("flash_attention", "flash_attention_tc_kernel"),
+                         ("ssd_scan", "ssd_scan_tc_kernel")):
+        sass = subprocess.run([tool, "--dump-sass", str(libs[name])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        per_fn, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                per_fn[fn] = 0
+            elif fn is not None and "HMMA" in line:
+                per_fn[fn] += 1
+        tc_fns = {f: n for f, n in per_fn.items() if kernel in f}
+        check(tc_fns and all(n > 0 for n in tc_fns.values()),
+              f"{kernel}: no HMMA instruction in its SASS ({tc_fns})")
+        counts[name] = sum(tc_fns.values())
+        print(f"sass {name}: {counts[name]} HMMA instructions over "
+              f"{len(tc_fns)} {kernel} instantiations "
+              f"{sorted(tc_fns.values())}; "
+              f"{sum(per_fn.values()) - counts[name]} elsewhere")
+    return counts
 
 
 def timed(fn, reps):
@@ -496,7 +531,7 @@ def retrieval_path(args, captured, arch):
                                       kbs.bucket_search_cuda)
 
     # ---- the path: counts to 0, drive, read ------------------------------
-    kernel.launches = 0
+    kmod.reset_launches()
     kbs.bucket_search_cuda.launches = 0
     kbs.bucket_gather_cuda.launches = 0
     t0 = time.perf_counter()
@@ -538,11 +573,15 @@ def retrieval_path(args, captured, arch):
     launches = {kname: kernel.launches,
                 "bucket_search": kbs.bucket_search_cuda.launches,
                 "bucket_gather": kbs.bucket_gather_cuda.launches}
+    by_design = dict(kernel.launches_by_design)
     forwards = (N_DOCS + N_NEW) // BATCH + len(srcs)
     print(f"launches on the {arch} retrieval path: {launches} over "
-          f"{forwards} forwards")
+          f"{forwards} forwards; {kname} by design {by_design}")
     check(launches[kname] == cfg.n_layers * forwards,
           f"the {kname} kernel must launch once per layer and forward")
+    check(by_design["tensor_core"] == launches[kname],
+          f"every {kname} launch of the path must take the tensor-core "
+          f"design: {by_design}")
     check(launches["bucket_search"] > 0, "the full scan never launched")
     st = svc.service.stats
     check(st.drops == 0, "capacity drops in serving")
@@ -563,7 +602,8 @@ def retrieval_path(args, captured, arch):
           f"pairwise cosine of a batch's embeddings: mean "
           f"{float(cos.mean()):.4f}, min {float(cos.min()):.4f}")
     profile_forward(model, docs[srcs[0]], kname)
-    return launches, svc, [docs[s] for s in srcs[:-1]] + [new[srcs[-1]]]
+    return (launches, by_design, svc,
+            [docs[s] for s in srcs[:-1]] + [new[srcs[-1]]])
 
 
 def wide_scan_checks(svc, query_tokens):
@@ -599,7 +639,7 @@ def wide_scan_checks(svc, query_tokens):
     torch.cuda.synchronize()
 
 
-def flash_record(a, kw, launches):
+def flash_record(a, kw, launches, by_design, hmma):
     """The flash kernel against its plain version and PyTorch's fused
     attention at one layer's q, k, v of a 64-document batch."""
     import torch
@@ -608,6 +648,10 @@ def flash_record(a, kw, launches):
     from repro_torch.kernels import ref
     q, k, v = a
     causal = kw.get("causal", True)
+    design = kfa.plan(q.dtype, q.shape[-1], q.shape[2], strides=[
+        s for t in (q, k, v, q) for s in t.stride()[:3]],
+        aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v))).design
+    check(design == "tensor_core", f"flash_attention plans {design}")
     ms, got = timed(lambda: kfa.flash_attention_cuda(q, k, v,
                                                      causal=causal), REPS)
     plain_ms, want = timed(lambda: ref.attention_ref(q, k, v,
@@ -623,7 +667,8 @@ def flash_record(a, kw, launches):
     pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[2])
     flops = 4.0 * pairs * dh            # q.k and p.v, 2 FLOPs a product
     bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
-    print(f"flash_attention: q {tuple(q.shape)} {q.dtype}: {ms:.4f} ms "
+    print(f"flash_attention ({design}): q {tuple(q.shape)} {q.dtype}, v "
+          f"strides {v.stride()}: {ms:.4f} ms "
           f"(plain {plain_ms:.3f} ms, scaled_dot_product_attention "
           f"{library_ms:.4f} ms, bound {bound:.4f} ms: {nbytes / 1e6:.1f} "
           f"MB, {flops / 1e9:.2f} GFLOP), max |err| {err:.3g}")
@@ -633,10 +678,11 @@ def flash_record(a, kw, launches):
         "replaces": "src/repro/kernels/flash_attention.py:74",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": library_ms}
+        "library_ms": library_ms, "design": design,
+        "launches_by_design": by_design, "sass_hmma": hmma}
 
 
-def ssd_record(a, kw, launches):
+def ssd_record(a, kw, launches, by_design, hmma):
     """The SSD kernel against its plain version (the sequential scan) at
     one layer's inputs of a 64-document batch; no single PyTorch call
     computes the scan, so there is no library time."""
@@ -644,6 +690,12 @@ def ssd_record(a, kw, launches):
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_scan as kssd
     x, a_log, b, c, dt = a
+    _, S, H, P = x.shape
+    y_strides = (S * H * P, H * P, P, 1)       # the wrapper's output
+    design = kssd.plan(x.dtype, P, b.shape[-1], strides=[
+        *x.stride(), *b.stride(), *c.stride(), *y_strides],
+        aligned=all(t.data_ptr() % 16 == 0 for t in (x, b, c))).design
+    check(design == "tensor_core", f"ssd_scan plans {design}")
     ms, got = timed(lambda: kssd.ssd_scan_cuda(x, a_log, b, c, dt), REPS)
     plain_ms, want = timed(lambda: ref.ssd_scan_ref(x, a_log, b, c, dt), 1)
     check(bool(torch.isfinite(got.float()).all()),
@@ -657,13 +709,14 @@ def ssd_record(a, kw, launches):
     es = x.element_size()
     nbytes = (2 * B * S * H * P * es + 2 * B * S * G * N * es
               + B * S * H * 4 + H * 4)
-    # the chunked algorithm at the kernel's chunk of 64, causal half of
-    # the quadratic terms: C.state and the state update (2 S N P each),
+    # the chunked algorithm at the kernel's chunk, causal half of the
+    # quadratic terms: C.state and the state update (2 S N P each),
     # C B^T and M x over the S (Q + 1) / 2 pairs of each chunk
-    Q = 64
+    Q = kssd.CHUNK
     flops = float(B * H) * (4 * S * N * P + S * (Q + 1) * (N + P))
     bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
-    print(f"ssd_scan: x {tuple(x.shape)} {x.dtype}, B/C {tuple(b.shape)}: "
+    print(f"ssd_scan ({design}, chunk {Q}): x {tuple(x.shape)} {x.dtype}, "
+          f"B/C {tuple(b.shape)}: "
           f"{ms:.4f} ms (plain {plain_ms:.2f} ms, bound {bound:.4f} ms: "
           f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, which take "
           f"{flops / PEAK_F32_FLOPS * 1e3:.3f} ms at the float32 CUDA-core "
@@ -674,7 +727,8 @@ def ssd_record(a, kw, launches):
         "replaces": "src/repro/kernels/ssd_scan.py:69",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None}
+        "library_ms": None, "design": design,
+        "launches_by_design": by_design, "sass_hmma": hmma}
 
 
 def main() -> int:
@@ -698,8 +752,9 @@ def main() -> int:
           f"device {dev_name} x{count}")
 
     t0 = time.perf_counter()
-    build_kernels()
+    libs = build_kernels()
     print(f"phase build_kernels: {time.perf_counter() - t0:.1f} s")
+    hmma = hmma_counts(libs)
 
     # each kernel's first inputs on each path, for the comparisons
     captured = {}
@@ -719,9 +774,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    launches, svc, query_tokens = retrieval_path(args, captured, "gemma-7b")
+    launches, by_design, svc, query_tokens = retrieval_path(args, captured,
+                                                            "gemma-7b")
     records["flash_attention"] = flash_record(
-        *captured.pop("flash_attention"), launches["flash_attention"])
+        *captured.pop("flash_attention"), launches["flash_attention"],
+        by_design, hmma["flash_attention"])
     # the full scan at the embedder's width, against its plain version
     bucket_search_record(captured.pop("bucket_search_gemma-7b")[1],
                          launches["bucket_search"])
@@ -732,9 +789,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    launches, svc, _ = retrieval_path(args, captured, "mamba2-130m")
+    launches, by_design, svc, _ = retrieval_path(args, captured,
+                                                 "mamba2-130m")
     records["ssd_scan"] = ssd_record(*captured.pop("ssd_scan"),
-                                     launches["ssd_scan"])
+                                     launches["ssd_scan"], by_design,
+                                     hmma["ssd_scan"])
     bucket_search_record(captured.pop("bucket_search_mamba2-130m")[1],
                          launches["bucket_search"])
     print(f"mamba2-130m retrieval path peak device memory "

@@ -3,9 +3,10 @@
 At first use each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, under
 ``build/repro_torch/`` at the repository root, named by a hash of the
-source so an edited source rebuilds.  No PyTorch headers are involved,
-so a build takes seconds.  Nothing happens at import time: the CPU-only
-tests import every module without a CUDA toolkit.
+source and the shared headers (``csrc/*.cuh``), so an edit rebuilds.
+No PyTorch headers are involved, so a build takes seconds.  Nothing
+happens at import time: the CPU-only tests import every module without a
+CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -40,7 +41,10 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, the shared
+    headers of csrc/ and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 

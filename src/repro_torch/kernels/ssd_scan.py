@@ -1,22 +1,32 @@
-"""Wrapper of the hand-written CUDA SSD chunked-scan kernel (Mamba-2).
+"""Wrapper of the hand-written CUDA SSD chunked-scan kernels (Mamba-2).
 
 ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu`` (built on first use) on
 CUDA tensors or raises; on CPU tensors it runs the kernel's plain
-version, ``ref.ssd_scan_ref`` (the sequential scan).  It counts its
-kernel launches in ``launches``.  Nothing is padded or repeated: the
-kernel masks a ragged last chunk itself and reads B and C at each head's
-group through their strides.
+version, ``ref.ssd_scan_ref`` (the sequential scan).  The source holds
+two designs, and ``plan`` picks one from the dtype, the widths and the
+alignment before the launch: "tensor_core" (bf16 on ``mma.sync``) or
+"cuda_core" (float32 products).  The wrapper counts its launches in
+``launches`` and, per design, in ``launches_by_design``.  Nothing is
+padded or repeated: the kernels mask a ragged last chunk themselves and
+read B and C at each head's group through their strides.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-MAX_P = 128            # widest head the kernel takes (8 columns a thread)
+CHUNK = 64             # steps a block takes at a time, in both designs
+MAX_P = 128            # widest head the CUDA-core design takes
+TC_MAX_P = 64          # ... and the tensor-core one (state in registers)
+TC_MAX_N = 128
+TC_THREADS = 128
+CC_THREADS = 256
 SMEM_LIMIT = 232_448   # shared memory a block may have on Hopper
+DESIGNS = ("tensor_core", "cuda_core")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,8 +39,12 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.ssd_scan_launch.argtypes = [_P] * 6 + [_I] * 7 + [_LL] * 19 + [_P]
         lib.ssd_scan_launch.restype = _I
-        lib.ssd_scan_smem_bytes.argtypes = [_I, _I]
-        lib.ssd_scan_smem_bytes.restype = _LL
+        lib.ssd_scan_tc_launch.argtypes = (
+            [_P] * 6 + [_I] * 6 + [_LL] * 19 + [_P])
+        lib.ssd_scan_tc_launch.restype = _I
+        for fn in (lib.ssd_scan_smem_bytes, lib.ssd_scan_tc_smem_bytes):
+            fn.argtypes = [_I, _I]
+            fn.restype = _LL
         lib._typed = True
     return lib
 
@@ -38,6 +52,59 @@ def _lib() -> ctypes.CDLL:
 def _need(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+class Plan(NamedTuple):
+    """How one call runs, as ``csrc/ssd_scan.cu`` sizes it."""
+    design: str        # "tensor_core" or "cuda_core"
+    chunk: int         # steps a block takes at a time
+    threads: int       # threads a block
+    smem_bytes: int    # dynamic shared memory a block needs
+
+
+def tc_smem_bytes(P: int, N: int) -> int:
+    """Shared bytes of a tensor-core block: two stages of bf16 x (Q, P +
+    8), B and C (Q, N + 8) and f32 dt (Q,), the bf16 state copy (P,
+    N + 8), and each of the 4 warps' cum and w (2, Q) f32."""
+    stage = CHUNK * (P + 8) * 2 + 2 * CHUNK * (N + 8) * 2 + CHUNK * 4
+    return 2 * stage + P * (N + 8) * 2 + TC_THREADS // 32 * 2 * CHUNK * 4
+
+
+def cuda_core_smem_bytes(P: int, N: int) -> int:
+    """Shared bytes of a CUDA-core block: float32 C (Q, N + 1), B^T in
+    whole row blocks of Q (Q + 1 wide), x (Q, PP), M (Q, Q + 1), the state
+    (N, PP) and four (Q,) columns, P padded to PP = 16, 32, 64 or 128."""
+    pp = next(w for w in (16, 32, 64, 128) if P <= w)
+    nrows = -(-N // CHUNK) * CHUNK
+    floats = (CHUNK * (N + 1) + nrows * (CHUNK + 1) + CHUNK * pp
+              + CHUNK * (CHUNK + 1) + N * pp + 4 * CHUNK)
+    return (floats + 1) * 4
+
+
+def plan(dtype: torch.dtype, P: int, N: int, *, strides=(),
+         aligned: bool = True) -> Plan:
+    """The design and sizing of a call at head width P and state width N.
+
+    ``strides`` are the element strides of x, b, c and y (4 each),
+    ``aligned`` whether their data pointers are 16-byte aligned.  bf16
+    with P and N multiples of 16, P <= 64, N <= 128, unit-stride rows and
+    every other stride a whole number of 16-byte chunks takes the
+    tensor-core design; float32 (whose tolerance bf16 products could not
+    meet) and any other input the CUDA-core one.  Raises ValueError for
+    an input neither design takes."""
+    _need(0 < P <= MAX_P, f"head width {P} must be in [1, {MAX_P}]")
+    _need(N > 0, f"state width {N} must be positive")
+    strides = tuple(strides)
+    if (dtype == torch.bfloat16 and P % 16 == 0 and N % 16 == 0
+            and P <= TC_MAX_P and N <= TC_MAX_N and aligned
+            and all(s == 1 for s in strides[3::4])
+            and all(s % 8 == 0 for i, s in enumerate(strides) if i % 4 < 3)):
+        p = Plan("tensor_core", CHUNK, TC_THREADS, tc_smem_bytes(P, N))
+    else:
+        p = Plan("cuda_core", CHUNK, CC_THREADS, cuda_core_smem_bytes(P, N))
+    _need(p.smem_bytes <= SMEM_LIMIT, f"P={P}, N={N} need {p.smem_bytes} "
+          f"bytes of shared memory, past the {SMEM_LIMIT} a block may have")
+    return p
 
 
 def ssd_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
@@ -66,24 +133,38 @@ def ssd_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
         return ref.ssd_scan_ref(x, a_log, b, c, dt)
     _need(all(t.device == x.device for t in (a_log, b, c, dt)),
           "x, a_log, b, c, dt must be on one CUDA device")
-    _need(0 < P <= MAX_P, f"head width {P} must be in [1, {MAX_P}]")
-    lib = _lib()
-    smem = lib.ssd_scan_smem_bytes(P, N)
-    _need(smem <= SMEM_LIMIT, f"P={P}, N={N} need {smem} bytes of shared "
-          f"memory, past the {SMEM_LIMIT} a block may have")
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
+    p = plan(x.dtype, P, N,
+             strides=[*x.stride(), *b.stride(), *c.stride(), *y.stride()],
+             aligned=all(t.data_ptr() % 16 == 0 for t in (x, b, c, y)))
     if y.numel() == 0:
         return y
     a_log = a_log.contiguous()
-    err = lib.ssd_scan_launch(
-        x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
-        a_log.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], B, S, H, G, P, N,
-        *x.stride(), *b.stride(), *c.stride(), *dt.stride(), *y.stride(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    ptrs = (x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
+            a_log.data_ptr(), y.data_ptr())
+    dims = (B, S, H, G, P, N)
+    strides = (*x.stride(), *b.stride(), *c.stride(), *dt.stride(),
+               *y.stride())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = _lib()
+    if p.design == "tensor_core":
+        err = lib.ssd_scan_tc_launch(*ptrs, *dims, *strides, stream)
+    else:
+        err = lib.ssd_scan_launch(*ptrs, _DTYPES[x.dtype], *dims, *strides,
+                                  stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan launch failed ({p.design}): CUDA "
+                           f"error {err}")
     ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.launches_by_design[p.design] += 1
     return y
 
 
+def reset_launches() -> None:
+    """Set the launch counts, total and per design, to 0."""
+    ssd_scan_cuda.launches = 0
+    ssd_scan_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
+
+
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)

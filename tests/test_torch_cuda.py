@@ -324,6 +324,49 @@ def test_flash_kernel_gqa_unequal_lengths_and_strided_views(H, Hkv):
 
 
 @pytest.mark.gpu
+def test_flash_tensor_core_design_at_the_embedders_shape():
+    """gemma-7b's layer shape (heads of 256, 128 tokens) at batch 2,
+    causal, with v a view of its (B, S, H, dh) projection as
+    ``models/attention.py`` passes it: the tensor-core design, within the
+    bf16 tolerance of the plain version."""
+    dev = _cuda()
+    B, H, S, dh = 2, 16, 128, 256
+    rng = np.random.default_rng(7)
+    mk = lambda: torch.from_numpy(
+        (rng.standard_normal((B, S, H, dh)) * 0.5).astype(np.float32)
+    ).to(dev, torch.bfloat16)
+    q = mk().transpose(1, 2).contiguous()
+    k = mk().transpose(1, 2).contiguous()
+    v = mk().transpose(1, 2)                     # strided (B, H, S, dh) view
+    assert kfa.plan(q.dtype, dh, S).design == "tensor_core"
+    want = ref.attention_ref(q, k, v, causal=True)
+    before = dict(kfa.flash_attention_cuda.launches_by_design)
+    got = kfa.flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    after = kfa.flash_attention_cuda.launches_by_design
+    assert after["tensor_core"] == before["tensor_core"] + 1
+    assert after["cuda_core"] == before["cuda_core"]
+    _attn_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,causal", [(36, True), (100, False)])
+def test_flash_bf16_heads_off_the_tensor_core_grid_take_cuda_cores(dh,
+                                                                   causal):
+    """bf16 heads that are not a multiple of 16 keep the CUDA-core design
+    (the plan decides before the launch) and its answers."""
+    dev = _cuda()
+    q, k, v = _attn(dh, 2, 4, 2, 77, 77, dh, torch.bfloat16, dev)
+    before = dict(kfa.flash_attention_cuda.launches_by_design)
+    got = kfa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    after = kfa.flash_attention_cuda.launches_by_design
+    assert after["cuda_core"] == before["cuda_core"] + 1
+    assert after["tensor_core"] == before["tensor_core"]
+    _attn_close(got, ref.attention_ref(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
 def test_flash_kernel_rejects_bad_inputs():
     dev = _cuda()
     q, k, v = _attn(0, 1, 2, 2, 16, 24, 64, torch.float32, dev)
@@ -451,6 +494,66 @@ def test_ssd_kernel_reads_strided_views(dtype):
     want = ref.ssd_scan_ref(x.contiguous(), a_log, b.contiguous(),
                             c.contiguous(), dt.contiguous())
     _ssd_close(got, want)
+
+
+@pytest.mark.gpu
+def test_ssd_tensor_core_design_at_the_embedders_shape():
+    """mamba2-130m's block shape (24 heads of 64, N = 128, one group) over
+    1,024 tokens at batch 2: x, B and C as views of one (B, S, 1792) bf16
+    conv output, mamba2's own decay rates; the tensor-core design, within
+    the bf16 tolerance of the sequential plain version."""
+    dev = _cuda()
+    B, S, H, P, G, N = 2, 1024, 24, 64, 1, 128
+    g = torch.Generator().manual_seed(3)
+    xbc = (torch.randn((B, S, H * P + 2 * G * N), generator=g) * 0.5).to(
+        dev, torch.bfloat16)
+    x, b, c = torch.split(xbc, [H * P, G * N, G * N], dim=-1)
+    x, b, c = x.view(B, S, H, P), b.view(B, S, G, N), c.view(B, S, G, N)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g) - 1.0).to(dev)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H)).to(dev)
+    want = ref.ssd_scan_ref(x, a_log, b, c, dt)
+    before = dict(kssd.ssd_scan_cuda.launches_by_design)
+    got = kssd.ssd_scan_cuda(x, a_log, b, c, dt)
+    torch.cuda.synchronize()
+    after = kssd.ssd_scan_cuda.launches_by_design
+    assert after["tensor_core"] == before["tensor_core"] + 1
+    assert after["cuda_core"] == before["cuda_core"]
+    _ssd_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N", [(8, 8), (64, 144), (100, 64)])
+def test_ssd_bf16_widths_off_the_tensor_core_grid_take_cuda_cores(P, N):
+    dev = _cuda()
+    args = _ssd(P * N, 1, 200, 2, 1, P, N, torch.bfloat16, dev, True)
+    before = dict(kssd.ssd_scan_cuda.launches_by_design)
+    got = kssd.ssd_scan_cuda(*args)
+    torch.cuda.synchronize()
+    assert (kssd.ssd_scan_cuda.launches_by_design["cuda_core"]
+            == before["cuda_core"] + 1)
+    _ssd_close(got, ref.ssd_scan_ref(*args))
+
+
+@pytest.mark.gpu
+def test_plans_mirror_the_kernels_shared_memory():
+    """The wrappers' pure-Python plans size every block as csrc/ does."""
+    _cuda()
+    fl = kfa._lib()
+    for dh in range(4, kfa.MAX_DH + 1, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            p = kfa.plan(dtype, dh, 128)
+            design = 1 if p.design == "tensor_core" else 0
+            assert fl.flash_attention_smem_bytes(design, dh) == p.smem_bytes
+    sl = kssd._lib()
+    for P in range(1, kssd.MAX_P + 1):
+        for N in (1, 16, 17, 64, 128, 144, 256):
+            assert sl.ssd_scan_smem_bytes(P, N) == \
+                kssd.cuda_core_smem_bytes(P, N)
+    for P in range(16, kssd.TC_MAX_P + 1, 16):
+        for N in range(16, kssd.TC_MAX_N + 1, 16):
+            assert sl.ssd_scan_tc_smem_bytes(P, N) == \
+                kssd.plan(torch.bfloat16, P, N).smem_bytes
 
 
 @pytest.mark.gpu
