@@ -429,66 +429,201 @@ def lsh_hash_record(a, kw, launches, idx):
         "library_ms": None}
 
 
+def device_ms(fn, reps=5):
+    """Device time of one fn() call in ms, its kernels' times summed
+    (torch.profiler, mean of reps calls after a warm one): the card's
+    share of the CUDA-event time, without the host's launch gaps.
+    Returns it and the kernels by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    parts = {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+             e.self_device_time_total / 1e3 / reps for e in rows}
+    return sum(parts.values()), parts
+
+
+def host_ms(fn, reps=REPS):
+    """Host time of one fn() call in ms: the mean over reps calls issued
+    back to back, without waiting for the device (a sync follows)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e3
+
+
+def same_bits(name, a, b):
+    """Two launches on the same inputs must give the same bits."""
+    import torch
+    for x, y in zip(a, b):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        check(torch.equal(x, y), f"{name}: two launches differ")
+
+
+def matched_pairs(query, store, L):
+    """(row, slot) pairs of the full scan's inputs that can hit -- the
+    slot is valid and its (table, bucket) one the row probes (a row
+    probing a bucket twice counts each slot once) -- and the distinct
+    slots among them (a slot several rows match is one slot)."""
+    import torch
+    u32 = lambda t: t.to(torch.int64) & 0xFFFFFFFF
+    S, R = query.probe.shape[:2]
+    qb = query.buckets.reshape(S, R, L, 2)
+    total = slots = 0
+    for s in range(S):
+        on = query.probe[s] > 0
+        rows = torch.arange(R, device=on.device)[:, None].expand(R, L)[on]
+        tab = query.table[s][:, None].expand(R, L)[on].to(torch.int64)
+        keys = torch.unique(torch.stack(
+            [tab, u32(qb[s, ..., 0])[on], u32(qb[s, ..., 1])[on], rows], 1),
+            dim=0)[:, :3]
+        ok = store.valid[s] > 0
+        skeys = torch.stack([store.table[s][ok].to(torch.int64),
+                             u32(store.buckets[s, :, 0][ok]),
+                             u32(store.buckets[s, :, 1][ok])], 1)
+        both = torch.cat([keys, skeys])
+        if both.shape[0] == 0:
+            continue
+        _, inv = torch.unique(both, dim=0, return_inverse=True)
+        n = int(inv.max()) + 1
+        per_row = torch.zeros(n, dtype=torch.int64, device=inv.device)
+        per_slot = torch.zeros_like(per_row)
+        per_row.index_add_(0, inv[:len(keys)], torch.ones_like(
+            inv[:len(keys)]))
+        per_slot.index_add_(0, inv[len(keys):], torch.ones_like(
+            inv[len(keys):]))
+        total += int((per_row * per_slot).sum())
+        slots += int(per_slot[per_row > 0].sum())
+    return total, slots
+
+
 def bucket_search_record(kw, launches):
     """The full-scan kernel against its plain version at the arguments
-    kw of one of its calls; returns its kernel record."""
+    kw of one of its calls, and launched twice to the same bits; returns
+    its kernel record."""
     from repro_torch.kernels import bucket_search as kbs
     from repro_torch.kernels import ref
     query, store = kw["query"], kw["store"]
     d, K, L = query.q.shape[-1], kw["K"], kw["L"]
     ms, got = timed(lambda: kbs.bucket_search_cuda(**kw), REPS)
+    same_bits("bucket_search", got, kbs.bucket_search_cuda(**kw))
+    dev_ms, parts = device_ms(lambda: kbs.bucket_search_cuda(**kw))
+    enq_ms = host_ms(lambda: kbs.bucket_search_cuda(**kw))
     plain_ms, want = timed(lambda: ref.bucket_search_ref(**kw), 1)
     err = compare("bucket_search", got, want)
     live_s = (query.probe > 0).any(dim=-1).sum(dim=-1)
     valid_s = (store.valid > 0).sum(dim=-1)
     live_rows, valid_pts = int(live_s.sum()), int(valid_s.sum())
-    S, N = store.points.shape[0], store.points.shape[1]
-    # the pairs this run's data needs: live rows x valid points per shard
-    flops = 2.0 * float((live_s.double() * valid_s.double()).sum()) * d
-    nbytes = (valid_pts * (d * 4 + 4 + 8 + 4 + 4 + 4)
-              + live_rows * (d * 4 + 4 + 8 * L + 4 * L + 4)
-              + query.q.shape[0] * query.q.shape[1] * (K * 8 + 4))
-    bound, by = bound_of(flops, PEAK_F32_FLOPS, nbytes)
-    print(f"bucket_search d={d} K={K}: S={S} R={query.q.shape[1]} live "
-          f"rows {live_rows} N={N} valid {valid_pts}: {ms:.3f} ms "
-          f"(plain {plain_ms:.1f} ms, bound {bound:.4f} ms), max |d2 err| "
-          f"{err:.3g}")
+    S, R, N = store.points.shape[0], query.q.shape[1], store.points.shape[1]
+    (pairs, slots), hits = matched_pairs(query, store, L), int(got[2].sum())
+    out_bytes = S * R * (K * 8 + 4)
+    row_bytes = live_rows * (d * 4 + 4 + 8 * L + 4 * L + 4)
+    # what these inputs need: every scanned slot's liveness, every valid
+    # slot's table and bucket, every matched slot's point row, psq and
+    # gid (once, however many rows match it), the live rows' queries and
+    # probes, the outputs; the matched pairs' dots
+    bound, by = bound_of(2.0 * pairs * d, PEAK_F32_FLOPS,
+                         S * N * 4 + valid_pts * 12 + slots * (d * 4 + 8)
+                         + row_bytes + out_bytes)
+    # the dense design's count: every live row against every
+    # valid point of its shard
+    dense, _ = bound_of(
+        2.0 * float((live_s.double() * valid_s.double()).sum()) * d,
+        PEAK_F32_FLOPS, valid_pts * (d * 4 + 24) + row_bytes + out_bytes)
+    print(f"bucket_search d={d} K={K}: S={S} R={R} live rows {live_rows} "
+          f"{live_s.tolist()} N={N} valid {valid_pts} matched pairs {pairs} "
+          f"on {slots} slots, hits {hits}: "
+          f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+          f"({by}), dense-design bound {dense:.4f} ms), max |d2 err| "
+          f"{err:.3g}, two launches bitwise equal; host {enq_ms:.4f} ms a "
+          f"call, device {dev_ms:.4f} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
     return {
         "name": "bucket_search", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bucket_search.cu",
         "replaces": "src/repro/kernels/bucket_search.py:168",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None}
+        "library_ms": None, "dense_bound_ms": dense,
+        "matched_pairs": pairs, "matched_slots": slots, "device_ms": dev_ms,
+        "host_ms": enq_ms}
 
 
 def bucket_gather_record(a, kw, launches):
-    """The gather kernel against its plain version; its kernel record."""
+    """The gather kernel against its plain version, and launched twice
+    to the same bits; its kernel record."""
     import torch
     from repro_torch.kernels import bucket_search as kbs
     from repro_torch.kernels import ref
     ms, got = timed(lambda: kbs.bucket_gather_cuda(*a, **kw), REPS)
+    same_bits("bucket_gather", got, kbs.bucket_gather_cuda(*a, **kw))
+    dev_ms, _ = device_ms(lambda: kbs.bucket_gather_cuda(*a, **kw))
+    enq_ms = host_ms(lambda: kbs.bucket_gather_cuda(*a, **kw))
     plain_ms, want = timed(lambda: ref.bucket_gather_ref(*a, **kw), 1)
     err = compare("bucket_gather", got, want)
-    q, qsq, start, end = a[:4]
-    d, K = q.shape[-1], kw["K"]
-    span = (end - start).to(torch.int64)
+    q, qsq, start, end, _, _, _, pvalid = a[:8]
+    S, E, d = q.shape
+    K = kw["K"]
+    span = (end - start).clamp_min(0).to(torch.int64)
     touched = int(span.sum())
     live_e = int((span > 0).sum())
-    flops = 2.0 * touched * d
-    nbytes = (touched * (d * 4 + 4 + 4 + 4) + live_e * (d * 4 + 12)
-              + q.shape[0] * q.shape[1] * (K * 8 + 4))
-    bound, by = bound_of(flops, PEAK_F32_FLOPS, nbytes)
-    print(f"bucket_gather: S={q.shape[0]} E={q.shape[1]} live {live_e} "
-          f"rows touched {touched}: {ms:.3f} ms (plain {plain_ms:.1f} ms, "
-          f"bound {bound:.4f} ms)")
+    # (expanded row, point) pairs of the spans whose point is valid, and
+    # the distinct slots the spans cover (rows probing one bucket share
+    # its span), valid or not
+    pairs = spanned = slots = 0
+    for s in range(S):
+        n = span[s]
+        first = torch.repeat_interleave(start[s].to(torch.int64), n)
+        off = torch.arange(int(n.sum()), device=n.device) \
+            - torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+        ok = pvalid[s] > 0
+        pairs += int(ok[first + off].sum())
+        hit = torch.zeros_like(ok)
+        hit[first + off] = True
+        spanned += int(hit.sum())
+        slots += int((hit & ok).sum())
+    out_bytes = S * E * (K * 8 + 4)
+    # every expanded row's span, the live rows' queries and norms, every
+    # spanned slot's liveness and every valid one's point row, psq and
+    # gid (each once, however many rows span it), the outputs; the valid
+    # pairs' dots
+    bound, by = bound_of(2.0 * pairs * d, PEAK_F32_FLOPS,
+                         S * E * 8 + live_e * (d * 4 + 4) + spanned * 4
+                         + slots * (d * 4 + 8) + out_bytes)
+    # every spanned slot's row and columns, valid or not
+    dense, _ = bound_of(2.0 * touched * d, PEAK_F32_FLOPS,
+                        touched * (d * 4 + 12) + live_e * (d * 4 + 12)
+                        + out_bytes)
+    print(f"bucket_gather: S={S} E={E} live {live_e} rows touched "
+          f"{touched} valid pairs {pairs} on {slots} slots ({spanned} spanned), "
+          f"hits {int(got[2].sum())}: "
+          f"{ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+          f"({by}), spanned-slot bound {dense:.4f} ms), two launches bitwise "
+          f"equal; host {enq_ms:.4f} ms a call, device {dev_ms:.4f} ms")
     return {
         "name": "bucket_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/bucket_search.cu",
-        "replaces": "src/repro/kernels/bucket_search.py:268",
+        "replaces": "src/repro/kernels/bucket_search.py:269",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None}
+        "library_ms": None, "dense_bound_ms": dense,
+        "matched_pairs": pairs, "matched_slots": slots, "device_ms": dev_ms,
+        "host_ms": enq_ms}
 
 
 def retrieval_path(args, captured, arch):

@@ -263,22 +263,192 @@ def test_gather_plain_version_walks_only_the_span():
     assert torch.all(tg[0, 0] == IMAX) and torch.all(td[0, 3] == F32_MAX)
 
 
+def _largest_reference_L(d, K):
+    """The largest L whose step of the reference's Pallas full scan fits
+    its ~16 MiB VMEM budget (``tests/test_kernels.py``) at width d."""
+    from repro.kernels.bucket_search import vmem_bytes_per_step
+    budget = 16 * 2 ** 20
+    lo, hi = 1, 2
+    while vmem_bytes_per_step(d, hi, K) <= budget:
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if vmem_bytes_per_step(d, mid, K) <= budget \
+            else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("L", [1, 16, "largest"])
 @pytest.mark.parametrize("K", [1, 10, 128])
-def test_full_scan_sizing_fits_every_width(K):
-    """The full-scan kernel's launch sizing takes every d the Pallas full
-    scan takes: for d in 1..8192 the staged points, their columns and the
-    top-K lists fit one H100 block's 232,448 bytes, the sizing is one the
-    kernel accepts (slabs narrower than the padded depth stage one
-    32-point sub-tile), and the widths slice 1 ran keep its 128-point
-    stages."""
+def test_full_scan_sizing_fits_every_width(K, L):
+    """The full scan's launch plan takes every (d, L, K) the Pallas full
+    scan takes: for d in 1..8192 (and L up to the largest the reference's
+    VMEM budget admits at that d) the scan block's lists, queues and, when
+    it fits, probe table stay within one H100 block's 232,448 bytes; the
+    table has at least twice as many slots as the tile can hold keys (a
+    power of two, as the kernel checks); the gather block fits too; and
+    at the index cell's shapes (L = 16, K <= 128) the table sits in
+    shared memory."""
     from repro_torch.kernels import bucket_search as kbs
     for d in range(1, 8193):
-        stage_n, slab, smem = kbs.scan_sizing(d, K)
-        dp = -(-d // kbs.DCH) * kbs.DCH
-        assert smem == (stage_n * slab * 4 + 6 * stage_n * 4
-                        + K * kbs.TILE_R * 8) <= kbs.SMEM_LIMIT, d
-        assert stage_n % kbs.SUB_N == 0 and 0 < stage_n <= kbs.STAGE_N, d
-        assert slab % kbs.DCH == 0 and 0 < slab <= dp, d
-        assert slab == dp or stage_n == kbs.SUB_N, d
-        if d <= 416 and K <= 10:
-            assert (stage_n, slab) == (kbs.STAGE_N, dp), d
+        ll = _largest_reference_L(d, K) if L == "largest" else L
+        plan = kbs.scan_plan(8, 97, 2_914_527, d, ll, K)
+        H = plan.table_slots
+        assert H & (H - 1) == 0 and H >= 2 * kbs.TILE_R * ll, (d, ll)
+        assert plan.smem_bytes == kbs.scan_smem_bytes(
+            K, H, plan.table_in_smem) <= kbs.SMEM_LIMIT, (d, ll)
+        assert 1 <= plan.n_splits <= kbs.MAX_SPLITS, (d, ll)
+        rows = 8 * 97                  # partial lists, 16 tables, rows
+        assert plan.workspace_bytes == (
+            8 * rows * plan.n_splits * K + 16 * H * 24
+            + 4 * (rows * plan.n_splits + rows + 8)), (d, ll)
+        if ll <= 16:
+            assert plan.table_in_smem, (d, ll)
+    assert kbs.gather_plan(K) <= kbs.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        kbs.scan_plan(8, 97, 100, 64, 16, 129)
+    with pytest.raises(ValueError):
+        kbs.gather_plan(0)
+
+
+# ---------------------------------------------------------------------------
+# The full-scan kernel's algorithm, emulated on the CPU: probe table ->
+# lookup of each live slot -> distances of the matched pairs only
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _key_hash(tab, hi, lo):
+    """``key_hash`` of ``csrc/bucket_search.cu`` in uint32 arithmetic."""
+    h = (hi * 0x9E3779B1) & _M32
+    h ^= (((lo + 0x7F4A7C15) & _M32) * 0x85EBCA77) & _M32
+    h ^= ((tab & _M32) * 0xC2B2AE3D) & _M32
+    h ^= h >> 15
+    h = (h * 0x2C1B3C6D) & _M32
+    return h ^ (h >> 12)
+
+
+def _probe_table(keys_of_rows, H):
+    """The kernel's open-addressing probe table of one row tile: each
+    row's active (table, hi, lo) keys -> a mask of the rows probing it."""
+    slots, masks = [None] * H, [0] * H
+    for r, keys in enumerate(keys_of_rows):
+        for key in keys:
+            i = _key_hash(*key) & (H - 1)
+            while slots[i] not in (None, key):
+                i = (i + 1) & (H - 1)
+            slots[i] = key
+            masks[i] |= 1 << r
+    return slots, masks
+
+
+def _find(slots, masks, key):
+    H = len(slots)
+    i = _key_hash(*key) & (H - 1)
+    while slots[i] is not None:
+        if slots[i] == key:
+            return masks[i]
+        i = (i + 1) & (H - 1)
+    return 0
+
+
+def _match_first(query, store, cr2, L, K):
+    """One shard (no leading axis), as the kernel computes it: live rows
+    in tiles of TILE_R, each tile's probe table, each valid slot looked
+    up, then d^2 of the matched pairs (``ref.row_dots``) and an exact lex
+    top-K per row."""
+    from repro_torch.kernels import bucket_search as kbs
+    R = query.q.shape[0]
+    H = kbs.scan_plan(1, R, store.points.shape[0], query.q.shape[1], L,
+                      K).table_slots
+    u32 = lambda t: (t.to(torch.int64) & _M32).tolist()
+    qb = query.buckets.reshape(R, L, 2)
+    qh, ql = u32(qb[..., 0]), u32(qb[..., 1])
+    on, qt = (query.probe > 0).tolist(), query.table.tolist()
+    live = [r for r in range(R) if any(on[r])]
+    ph, pl = u32(store.buckets[:, 0]), u32(store.buckets[:, 1])
+    pt, ok = store.table.tolist(), (store.valid > 0).tolist()
+    rows, cols = [], []
+    for t0 in range(0, len(live), kbs.TILE_R):
+        tile = live[t0:t0 + kbs.TILE_R]
+        slots, masks = _probe_table(
+            [[(qt[r], qh[r][l], ql[r][l]) for l in range(L) if on[r][l]]
+             for r in tile], H)
+        for c in range(store.points.shape[0]):
+            m = _find(slots, masks, (pt[c], ph[c], pl[c])) if ok[c] else 0
+            rows += [tile[b] for b in range(len(tile)) if m >> b & 1]
+            cols += [c] * bin(m).count("1")
+    rows, cols = torch.tensor(rows, dtype=torch.long), \
+        torch.tensor(cols, dtype=torch.long)
+    d2 = torch.clamp_min(query.qsq[rows] + store.psq[cols] - 2.0 * ref.row_dots(
+        query.q[rows], store.points[cols]), 0.0)
+    hit = d2 <= cr2
+    cnt = torch.zeros(R, dtype=torch.int32).index_add_(
+        0, rows[hit], torch.ones(int(hit.sum()), dtype=torch.int32))
+    keys = ref.sentinel_key("cpu").expand(R, K).clone()
+    for r in range(R):
+        mine = hit & (rows == r)
+        keys[r] = ref.merge_lex_topk(torch.cat([keys[r], ref.lex_key(
+            d2[mine], store.gid[cols[mine]])]), K)
+    return (*ref.lex_unkey(keys), cnt)
+
+
+def _hand_built(kind):
+    """A store and queries showing one case the probe table must get
+    right; returns (query, store)."""
+    rng = np.random.default_rng(len(kind))
+    R, N, d, L = 80, 240, 8, 4
+    q = (rng.standard_normal((R, d)) * 0.3).astype(np.float32)
+    p = (rng.standard_normal((N, d)) * 0.3).astype(np.float32)
+    words = np.array([[1, 2], [3, 4], [0x80000001, 0xFFFFFFF0],
+                      [5, 0x9E3779B9]], np.uint32)
+    pb = words[rng.integers(0, 4, N)]
+    ptab = np.zeros(N, np.int32)
+    valid = np.ones(N, np.int32)
+    qb = words[rng.integers(0, 4, (R, L))]
+    probe = np.ones((R, L), np.int32)
+    qtab = np.zeros(R, np.int32)
+    if kind == "duplicate_probes":
+        qb[:, 1] = qb[:, 0]
+    elif kind == "inactive_probes":
+        probe[:, 1::2] = 0
+    elif kind == "two_tables_share_a_word":
+        ptab[::2] = 1
+        qtab[::3] = 1
+    elif kind == "tombstones":
+        valid[rng.random(N) < 0.5] = 0
+    elif kind == "hot_bucket":
+        pb[:] = words[2]
+        qb[:] = words[2]
+    elif kind == "rows_probe_nothing":
+        probe[::2] = 0
+    elif kind == "high_bit_words":
+        pb |= np.uint32(0x80000000)
+        qb |= np.uint32(0x80000000)
+    t = torch.from_numpy
+    query = QueryBatch.build(t(q), t(qb.view(np.int32).reshape(R, 2 * L)),
+                             t(probe), t(qtab))
+    store = StoreView.build(t(p), t(pb.view(np.int32)),
+                            t(rng.permutation(N).astype(np.int32)),
+                            t(valid), t(ptab))
+    return query, store
+
+
+@pytest.mark.parametrize("kind", [
+    "duplicate_probes", "inactive_probes", "two_tables_share_a_word",
+    "tombstones", "hot_bucket", "rows_probe_nothing", "high_bit_words"])
+def test_match_first_emulation_equals_the_plain_full_scan(kind):
+    """The kernel's match-first algorithm gives exactly (bitwise) the
+    plain full scan's answer: a row probing a bucket twice counts each
+    point once, inactive probes and tombstones match nothing, a bucket
+    word shared by two tables matches only its own table's rows, a hot
+    bucket pairs every row with every point, and bucket words above 2**31
+    match as their bits do."""
+    query, store = _hand_built(kind)
+    K, L, cr2 = 5, 4, 0.6
+    got = _match_first(query, store, cr2, L, K)
+    want = ref.bucket_search_ref(query=query, store=store, cr2=cr2, L=L, K=K)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert int(want[2].sum()) > 0

@@ -62,9 +62,9 @@ def case(seed, R, N, d, L, frac_match=0.2, T=1):
         ptab=rng.integers(0, T, (N,)).astype(np.int32))
 
 
-def sorted_store_case(seed, n_sorted, n_tail, d, L, T, n_buckets=24):
+def sorted_store_case(seed, n_sorted, n_tail, d, L, T, n_buckets=24, R=40):
     """A random store with a sorted CSR region (uint32 words above 2**31
-    included) and an unsorted tail, plus queries whose probes hit, miss
+    included) and an unsorted tail, plus R queries whose probes hit, miss
     and repeat buckets."""
     rng = np.random.default_rng(seed)
     N = n_sorted + n_tail
@@ -82,7 +82,6 @@ def sorted_store_case(seed, n_sorted, n_tail, d, L, T, n_buckets=24):
         table[:n_sorted], packed[:n_sorted])
     gid = rng.permutation(N).astype(np.int32)
     valid = (rng.random(N) < 0.85).astype(np.int32)
-    R = 40
     q = (rng.standard_normal((R, d)) * 0.3).astype(np.float32)
     qb = np.zeros((R, L, 2), np.uint32)
     pick = rng.integers(0, N, (R, L))
@@ -274,6 +273,104 @@ def test_csr_bitwise_equal_full_scan_any_width(d):
     _bitwise_equal(csr, full)
     _match_plain(csr, ref.bucket_search_ref(query=query, store=store,
                                             cr2=cr2, L=L, K=K))
+
+
+def _redesign_case(kind, d):
+    """A sorted region plus an unsorted tail for the match-first kernels:
+    "hot_bucket" -- three buckets a table, every probe in one of them;
+    "duplicate_probes" -- every row probes its first bucket three times;
+    "rows_past_one_tile" -- 150 rows, over two 64-row tiles live;
+    "odd_tail" -- the sorted region ends at an odd row, so the tail
+    scan's columns start off their 16-byte alignment;
+    "wide_probe_table" -- L = 80 probes a row, too many keys for the
+    probe table to fit shared memory at any K: blocks probe it in
+    global memory."""
+    L = 80 if kind == "wide_probe_table" else 6
+    ns, tail, R, nb = 3000, 500, 40, 24
+    if kind == "hot_bucket":
+        nb = 1
+    elif kind == "rows_past_one_tile":
+        R = 150
+    elif kind == "odd_tail":
+        ns, tail = 3001, 501
+    c = sorted_store_case(d + len(kind), ns, tail, d, L, 2, n_buckets=nb,
+                          R=R)
+    if kind == "duplicate_probes":
+        qb = c["qb"].reshape(R, L, 2)
+        qb[:, 1:3] = qb[:, :1]
+        c["probe"][:, :3] = 1
+    if kind == "rows_past_one_tile":
+        c["probe"][:, 0] = 1
+    return L, ns, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 10, 128])
+@pytest.mark.parametrize("d", [1, 3, 64, 432, 768, 3072])
+@pytest.mark.parametrize("kind", ["hot_bucket", "duplicate_probes",
+                                  "rows_past_one_tile", "odd_tail",
+                                  "wide_probe_table"])
+def test_match_first_kernels(kind, d, K):
+    """The match-first full scan against its plain version, twice
+    (bitwise the same: atomics order nothing that shows), also on a slice
+    starting at row 1; the CSR path (gather + tail scan) bitwise equal to
+    the full scan, its gather launched twice to the same bits."""
+    dev = _cuda()
+    L, ns, c = _redesign_case(kind, d)
+    query, store = to_torch(c, n_sorted=ns)
+    query, store = _to(dev, query), _to(dev, store)
+    cr2 = 0.2 * d
+    lead = lambda o: _to(dev, o, True)
+    want = ref.bucket_search_ref(query=lead(query), store=lead(store),
+                                 cr2=cr2, L=L, K=K)
+    got = [kbs.bucket_search_cuda(query=lead(query), store=lead(store),
+                                  cr2=cr2, L=L, K=K) for _ in range(2)]
+    torch.cuda.synchronize()
+    _match_plain(got[0], want)
+    _bitwise_equal(got[0], got[1])
+    sl = ops._slice(lead(store), 1, store.points.shape[0])
+    _match_plain(kbs.bucket_search_cuda(query=lead(query), store=sl, cr2=cr2,
+                                        L=L, K=K),
+                 ref.bucket_search_ref(query=lead(query), store=sl, cr2=cr2,
+                                       L=L, K=K))
+    recorded = {}
+    gather = kbs.bucket_gather_cuda
+
+    def spy(*a, **kw):
+        recorded["args"] = (a, kw)
+        return gather(*a, **kw)
+    ops.bucket_gather_cuda = spy
+    try:
+        csr = ops.bucket_search(query=query, store=store, cr2=cr2, L=L, k=K)
+    finally:
+        ops.bucket_gather_cuda = gather
+    full = ops.bucket_search(query=query, store=store, cr2=cr2, L=L, k=K,
+                             force_full_scan=True)
+    a, kw = recorded["args"]
+    torch.cuda.synchronize()
+    _bitwise_equal(csr, full)
+    _bitwise_equal(gather(*a, **kw), gather(*a, **kw))
+    if kind == "rows_past_one_tile":
+        assert int((query.probe > 0).any(-1).sum()) > kbs.TILE_R
+    if kind == "wide_probe_table":
+        R, N = query.q.shape[0], store.points.shape[0]
+        assert not kbs.scan_plan(1, R, N, d, L, K).table_in_smem
+
+
+@pytest.mark.gpu
+def test_bucket_plans_mirror_the_kernels_shared_memory():
+    """scan_plan / gather_plan size every block and the probe-table
+    workspace as csrc/bucket_search.cu does."""
+    _cuda()
+    lib = kbs._lib()
+    for K in range(1, kbs.MAX_K + 1):
+        assert lib.bucket_gather_smem_bytes(K) == kbs.gather_plan(K)
+        for L in (1, 2, 3, 8, 16, 17, 32, 33, 64, 100, 1000):
+            p = kbs.scan_plan(8, 97, 1000, 64, L, K)
+            assert lib.bucket_search_smem_bytes(
+                K, p.table_slots, int(p.table_in_smem)) == p.smem_bytes
+            assert lib.bucket_search_workspace_bytes(
+                8, 97, K, p.n_splits, p.table_slots) == p.workspace_bytes
 
 
 def _attn(seed, B, H, Hkv, Sq, Sk, dh, dtype, dev):
