@@ -13,10 +13,13 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                kernel), again after ``compact()`` (CSR gather kernel; the
                answers must be bitwise equal), and again after a streaming
                insert of 2**16 points and a delete of 1024 (gather plus
-               tail scan);
+               tail scan); every hash of it (build, each bucket's
+               dispatch and receive side, the insert, each H and G)
+               launches the hash kernel;
   hash      -- ``ops.lsh_hash``, the p-stable hash op, on the index's
                Map-phase inputs: its 2**22 stored points against the
-               index's own projections of both tables side by side;
+               index's own projections of both tables side by side,
+               bitwise what the build hashed;
   retrieval -- the retrieval service of ``repro_torch.launch.serve`` with
                gemma-7b at its published width (28 layers, d_model 3072,
                bf16, weights drawn on the card from --seed): embed 2,048
@@ -36,8 +39,10 @@ just after; the flash and SSD wrappers also count per design, and every
 launch of those two paths must go to their "tensor_core" designs, whose
 SASS must hold tensor-core (HMMA) instructions.  Each kernel is then
 held against its plain PyTorch version on the inputs its path gave it
-and timed with CUDA events, one serving bucket and one embedding forward
-are traced with torch.profiler, and the script prints one JSON line of
+and timed with CUDA events; the hash kernel BITWISE, at the first call
+of every (phase, kind) of every path, and against the CPU on a sample
+of 65,536 rows.  One serving bucket and one embedding forward are
+traced with torch.profiler, and the script prints one JSON line of
 kernel records and, last, ``{"ok": true, "device": {...}}``.  Any
 failed check raises: the exit code is then non-zero and the last line is
 not printed.  With no CUDA device it exits with code 2 before doing
@@ -84,6 +89,7 @@ RETRIEVAL_ARCHS = {
 RETRIEVAL_LSH = dict(r=0.2, c=2.0, k=8, W=0.5, L=16, n_tables=1,
                      k_neighbors=1)
 BF16_TOL = 0.05    # the reference's bf16 attention tolerance
+HASH_SAMPLE = 65536  # rows of each hash call checked against the CPU
 
 
 def check(cond, msg):
@@ -195,7 +201,7 @@ def traced(fn, what):
     """Trace one fn() call (after a warm one) with torch.profiler: its wall
     time, the device's busy share of it (kernel times summed, so overlap
     would count twice) and the kernels by device time.  Returns the
-    kernel rows and the wall ms."""
+    kernel rows, the wall ms and the kernel launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -220,7 +226,7 @@ def traced(fn, what):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
-    return rows, wall
+    return rows, wall, launches
 
 
 def profile_forward(model, tokens, kernel_key):
@@ -228,7 +234,7 @@ def profile_forward(model, tokens, kernel_key):
     device time: the blocks' kernel (``kernel_key`` in its name), the
     matrix products, the rest."""
     from repro_torch.serving import embed_texts
-    rows, wall = traced(lambda: embed_texts(model, tokens),
+    rows, _, _ = traced(lambda: embed_texts(model, tokens),
                         f"one {len(tokens)}-document forward")
     part = {kernel_key: 0.0, "gemm": 0.0, "other": 0.0}
     for e in rows:
@@ -249,6 +255,40 @@ def recorder(captured, name, fn):
     return wrapped
 
 
+class HashCalls:
+    """Stands in for ``core.hashing``'s view of the hash kernel's module
+    while a path runs (``with HashCalls() as calls``): every call goes to
+    the real wrapper, whose launch counter counts it; the first call of
+    each (phase, kind) is kept with its arguments, and all are counted.
+    Kinds: "H" (float x) or "G" (the int32 bucket vectors), with the
+    tables side by side ("cols"), on x's leading axis ("lead") or by
+    per-row table ids ("table")."""
+
+    def __init__(self):
+        from repro_torch.kernels import lsh_hash as klh
+        self.klh, self.DTYPES = klh, klh.DTYPES
+        self.phase, self.first, self.count = "build", {}, {}
+
+    def lsh_hash_cuda(self, x, a, b, **kw):
+        import torch
+        kind = ("G " if x.dtype == torch.int32 else "H ") + (
+            "table" if kw.get("table") is not None
+            else "lead" if a.dim() == 3 else "cols")
+        key = f"{self.phase}: {kind}"
+        self.count[key] = self.count.get(key, 0) + 1
+        self.first.setdefault(key, (x, a, b, dict(kw)))
+        return self.klh.lsh_hash_cuda(x, a, b, **kw)
+
+    def __enter__(self):
+        from repro_torch.core import hashing
+        hashing.klh = self
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import hashing
+        hashing.klh = self.klh
+
+
 def bound_of(flops, peak_flops, nbytes):
     """(bound ms, what bounds it): the larger of the operations over the
     peak rate for their type and the bytes over the memory rate."""
@@ -264,6 +304,7 @@ def index_path(args, captured):
     import torch
     from repro_torch.core import DistributedLSHIndex, LSHConfig, Scheme
     from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import lsh_hash as klh
     from repro_torch.kernels import ops
     from repro_torch.serving import ShardedLSHService
 
@@ -290,6 +331,8 @@ def index_path(args, captured):
     # ---- the path: counts to 0, drive, read ------------------------------
     kbs.bucket_search_cuda.launches = 0
     kbs.bucket_gather_cuda.launches = 0
+    klh.lsh_hash_cuda.launches = 0
+    hcalls = HashCalls().__enter__()
     t0 = time.perf_counter()
     idx = DistributedLSHIndex(cfg, k_neighbors=K)
     calls = idx.a2a.calls
@@ -304,6 +347,7 @@ def index_path(args, captured):
     svc = ShardedLSHService(idx, bucket_size=bucket,
                             max_latency_ms=float("inf"), k_neighbors=K)
     calls = idx.a2a.calls
+    hcalls.phase = "bucket"
     g4, d4, e4, ms4 = serve(svc, queries)
     check(idx.a2a.calls == calls + 2 * BUCKETS,
           "a query must exchange twice")
@@ -323,7 +367,9 @@ def index_path(args, captured):
     print(f"phase serve_sorted: bitwise equal, {ms5:.2f} ms/bucket")
 
     calls = idx.a2a.calls
+    hcalls.phase = "insert"
     ins = svc.insert(extra, gids=np.arange(n, n + len(extra)))
+    hcalls.phase = "bucket"
     check(idx.a2a.calls == calls + 1 and ins.drops == 0,
           "streaming insert: one exchange, no drops")
     dele = svc.delete(victims)
@@ -333,14 +379,23 @@ def index_path(args, captured):
     print(f"phase serve_tail: tail {idx.layout['tail_rows']} rows, "
           f"{ms6:.2f} ms/bucket")
     torch.cuda.synchronize()
+    hcalls.__exit__()
     launches = {"bucket_search": kbs.bucket_search_cuda.launches,
-                "bucket_gather": kbs.bucket_gather_cuda.launches}
-    print(f"launches on the index path: {launches}")
+                "bucket_gather": kbs.bucket_gather_cuda.launches,
+                "lsh_hash": klh.lsh_hash_cuda.launches}
+    print(f"launches on the index path: {launches}; lsh_hash by phase and "
+          f"kind: {hcalls.count}")
 
     # ---- checks on the answers ------------------------------------------
     check(svc.stats.drops == 0, "capacity drops in serving")
-    check(launches["bucket_search"] > 0 and launches["bucket_gather"] > 0,
+    check(all(v > 0 for v in launches.values()),
           "a kernel of the path never launched")
+    check(launches["lsh_hash"] == sum(hcalls.count.values()),
+          "every hash of the path must launch the hash kernel")
+    for key in ("build: H cols", "build: G lead", "bucket: H lead",
+                "bucket: G lead", "bucket: H table", "bucket: G table",
+                "insert: H cols", "insert: G lead"):
+        check(hcalls.count.get(key, 0) > 0, f"no hash launch for {key}")
     for g, dd in ((g4, d4), (g6, d6)):
         check(g.shape == (m, K) and dd.shape == (m, K), "answer shape")
         hit = g != IMAX
@@ -358,14 +413,18 @@ def index_path(args, captured):
     recall = float(np.mean((g4 == planted[:, None]).any(axis=1)))
     print(f"planted-neighbour recall@{K}: {recall:.4f} "
           f"(found in {float(np.mean(g4[:, 0] != IMAX)):.4f} of queries)")
-    traced(lambda: serve(svc, queries[:bucket]), "one bucket")
-    return launches, idx, data
+    _, _, n_launch = traced(lambda: serve(svc, queries[:bucket]),
+                            "one bucket")
+    print(f"device launches of one served tail bucket: {n_launch} "
+          f"(hash kernel: 4 of them)")
+    return launches, idx, data, hcalls
 
 
-def lsh_hash_path(idx, data, captured):
+def lsh_hash_path(idx, data, hcalls):
     """The hash op's own entry point, ``ops.lsh_hash``, on the index's
     Map-phase inputs: every stored point against the projections of all
-    its tables side by side; returns its launch count."""
+    its tables side by side, bitwise what the index's build computed;
+    returns its launch count."""
     import torch
     from repro_torch.kernels import lsh_hash as klh
     from repro_torch.kernels import ops
@@ -373,60 +432,134 @@ def lsh_hash_path(idx, data, captured):
     x = torch.from_numpy(data).cuda()
     A = torch.cat([idx.stacked_params.table(t).A for t in range(T)], dim=1)
     b = torch.cat([idx.stacked_params.table(t).b for t in range(T)])
-    ops.lsh_hash_cuda = recorder(captured, "lsh_hash", klh.lsh_hash_cuda)
     klh.lsh_hash_cuda.launches = 0
     out = ops.lsh_hash(x, A, b, w=idx.cfg.W)
     torch.cuda.synchronize()
     launches = klh.lsh_hash_cuda.launches
     check(launches == 1 and out.shape == (len(data), A.shape[1]),
           "ops.lsh_hash must launch its kernel once")
-    print(f"launches on the hash path: {{'lsh_hash': {launches}}}")
+    bx, ba, bb, bkw = hcalls.first["build: H cols"]
+    check(torch.equal(out, klh.lsh_hash_cuda(bx, ba, bb, **bkw)),
+          "ops.lsh_hash differs from the index's build hash")
+    print(f"launches on the hash path: {{'lsh_hash': {launches}}}, "
+          f"bitwise the index's build hash")
     return launches
 
 
-def lsh_hash_record(a, kw, launches, idx):
-    """The hash kernel against its plain version and, table by table,
-    against the index's own hash_h; its kernel record."""
+def _hash_sample(x, a, b, kw, got, rows=HASH_SAMPLE):
+    """Up to ``rows`` rows of a hash call and of its output, on the CPU:
+    (x, a, b, kw, got) with every tensor moved there."""
+    import torch
+    g = torch.Generator().manual_seed(0)
+    kw = dict(kw)
+    table = kw.get("table")
+    if table is not None:             # sample whole table entries
+        per = x.numel() // x.shape[-1] // table.numel()
+        e = torch.randperm(table.numel(), generator=g)[:max(1, rows // per)]
+        x = x.reshape(table.numel(), per, x.shape[-1])[e.to(x.device)]
+        got = got.reshape(table.numel(), per, -1)[e.to(got.device)]
+        kw["table"] = table.reshape(-1)[e.to(table.device)].cpu()
+    elif a.dim() == 3:                # rows of every table
+        n = x.shape[1]
+        e = torch.randperm(n, generator=g)[:rows].to(x.device)
+        x, got = x[:, e], got[:, e]
+    else:
+        e = torch.randperm(x.shape[0], generator=g)[:rows].to(x.device)
+        x, got = x[e], got[e]
+    return x.cpu(), a.cpu(), b.cpu(), kw, got.cpu()
+
+
+def hash_shape_record(key, args, calls, sp, W):
+    """The hash kernel at one (phase, kind) of a path, on the first call's
+    inputs: BITWISE its plain version on the card, and on a sample of
+    HASH_SAMPLE rows the CPU's plain version (the function hash_h runs
+    there) and, with the tables side by side, hash_h of each table on the
+    CPU.  Times: the kernel, the plain version, the bound (bytes: every
+    input read once, the output written once; operations: 2 d K a row at
+    the float32 peak), the arithmetic floor without fused multiply-adds
+    (2 d K instructions a row at half that peak), calls x (ms - bound)
+    and, for the Map phase, torch.matmul plus the add, division and floor
+    as a yardstick (not one call, not bitwise)."""
     import torch
     from repro_torch.core.hashing import hash_h
     from repro_torch.kernels import lsh_hash as klh
     from repro_torch.kernels import ref
-    x, A, b = a
-    ms, got = timed(lambda: klh.lsh_hash_cuda(x, A, b, **kw), REPS)
-    plain_ms, want = timed(lambda: ref.lsh_hash_ref(x, A, b, **kw), 1)
-
-    def agree(name, g, w):
-        diff = (g.long() - w.long()).abs()
-        share = float((diff == 0).double().mean())
-        check(share >= 0.999 and int(diff.max()) <= 1,
-              f"lsh_hash vs {name}: agreement {share}, max |diff| "
-              f"{int(diff.max())}")
-        return share, int(diff.max())
-    share, err = agree("its plain version", got, want)
-    k = idx.cfg.k
-    for t in range(idx.cfg.n_tables):
-        ht = hash_h(idx.stacked_params.table(t), x, idx.cfg.W)
-        st, _ = agree(f"hash_h of table {t}", got[:, k * t:k * (t + 1)], ht)
-        print(f"lsh_hash vs hash_h, table {t}: agreement {st:.7f}")
-        del ht
-    n, d = x.shape
-    K = A.shape[1]
-    nbytes = (x.numel() * x.element_size() + A.numel() * 4 + K * 4
-              + n * K * 4)
+    x, a, b, kw = args
+    ms, got = timed(lambda: klh.lsh_hash_cuda(x, a, b, **kw), REPS)
+    plain_ms, want = timed(lambda: ref.lsh_hash_ref(x, a, b, **kw), 1)
+    check(torch.equal(got, want),
+          f"lsh_hash {key}: kernel differs from its plain version on "
+          f"{float((got != want).double().mean())} of the outputs")
+    # rows holding a NaN are the receive buffer's empty slots, which
+    # nothing reads: float -> int32 of NaN is 0 on the card and INT_MIN on
+    # x86, so those rows are counted and left out of the CPU comparison
+    xs, as_, bs, kws, gs = _hash_sample(x, a, b, kw, got)
+    fin = torch.isfinite(xs.float()).all(dim=-1)
+    check(torch.equal(gs[fin], klh.lsh_hash_cuda(xs, as_, bs, **kws)[fin]),
+          f"lsh_hash {key}: kernel differs from the CPU's plain version")
+    d, K = a.shape[-2:]
+    if a.dim() == 2 and x.dtype == torch.float32:     # H, tables side by side
+        k, cpu = sp.A.shape[-1], sp.to("cpu")
+        for t in range(K // k):
+            check(torch.equal(gs[fin][:, k * t:k * (t + 1)],
+                              hash_h(cpu.table(t), xs[fin], W)),
+                  f"lsh_hash {key}: table {t} differs from CPU hash_h")
+    n = x.numel() // d
+    table = kw.get("table")
+    nbytes = (x.numel() * x.element_size() + a.numel() * 4 + b.numel() * 4
+              + (table.numel() * 4 if table is not None else 0) + n * K * 4)
     flops = 2.0 * n * d * K
     bound, by = bound_of(flops, PEAK_F32_FLOPS, nbytes)
-    print(f"lsh_hash: x {tuple(x.shape)} {x.dtype} -> K={K}: {ms:.4f} ms "
-          f"(plain {plain_ms:.3f} ms, bound {bound:.4f} ms: "
-          f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), agreement "
-          f"{share:.7f}, max |diff| {err}; no single PyTorch call "
-          f"computes floor((x a + b) / w)")
+    nonfused = flops / (PEAK_F32_FLOPS / 2) * 1e3
+    chain_ms = None
+    if a.dim() == 2:
+        w = torch.tensor(kw["w"], dtype=torch.float32, device=x.device)
+        chain_ms, _ = timed(lambda: torch.floor(
+            (torch.matmul(x.float(), a) + b) / w).to(torch.int32), REPS)
+    rec = {"shape": key, "x": list(x.shape), "dtype": str(x.dtype),
+           "K": int(K), "tables": int(a.shape[0]) if a.dim() == 3 else 1,
+           "calls": calls, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+           "nonfused_floor_ms": nonfused, "loss_ms": calls * (ms - bound),
+           "matmul_chain_ms": chain_ms, "cpu_rows": int(fin.sum()),
+           "nan_rows": int((~fin).sum()), "bitwise": True}
+    print(f"lsh_hash {key}: x {tuple(x.shape)} {x.dtype} K={K} "
+          f"tables {rec['tables']}, {calls} calls: {ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}: "
+          f"{nbytes / 1e9:.4f} GB; non-fused floor {nonfused:.4f} ms), "
+          f"calls x (ms - bound) {rec['loss_ms']:.4f} ms"
+          + (f", torch.matmul + add + div + floor {chain_ms:.4f} ms (not "
+             f"one call, not bitwise)" if chain_ms is not None else "")
+          + f"); bitwise equal to its plain version and, on "
+          f"{rec['cpu_rows']} rows, to the CPU's ({rec['nan_rows']} empty "
+          f"slots of NaN left out)")
+    return rec
+
+
+def hash_records(hcalls, sp, W):
+    """hash_shape_record of every (phase, kind) a path called."""
+    return [hash_shape_record(key, args, hcalls.count[key], sp, W)
+            for key, args in hcalls.first.items()]
+
+
+def lsh_hash_record(shapes, launches, own_launches):
+    """The hash kernel's record: the Map phase's numbers (the index's
+    build) as its ms, plain ms and bound; every other shape beside."""
+    main = next(r for r in shapes if r["path"] == "index"
+                and r["shape"] == "build: H cols")
     return {
         "name": "lsh_hash", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lsh_hash.cu",
         "replaces": "src/repro/kernels/lsh_hash.py:34",
-        "launches": launches, "max_abs_err": float(err), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": None}
+        "launches": launches["index"], "max_abs_err": 0.0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "nonfused_floor_ms": main["nonfused_floor_ms"],
+        "matmul_chain_ms": main["matmul_chain_ms"],
+        "loss_ms": {p: sum(r["loss_ms"] for r in shapes if r["path"] == p)
+                    for p in launches},
+        "launches_by_path": launches, "ops_lsh_hash_launches": own_launches,
+        "shapes": shapes}
 
 
 def device_ms(fn, reps=5):
@@ -636,6 +769,7 @@ def retrieval_path(args, captured, arch):
     from repro_torch.configs import get_config
     from repro_torch.core import Scheme, prng
     from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import lsh_hash as klh
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.serving import RetrievalService, embed_texts
@@ -669,6 +803,8 @@ def retrieval_path(args, captured, arch):
     kmod.reset_launches()
     kbs.bucket_search_cuda.launches = 0
     kbs.bucket_gather_cuda.launches = 0
+    klh.lsh_hash_cuda.launches = 0
+    hcalls = HashCalls().__enter__()
     t0 = time.perf_counter()
     svc = RetrievalService.build(
         cfg, model, docs, n_shards=8, scheme=Scheme.LAYERED, seed=args.seed,
@@ -685,10 +821,13 @@ def retrieval_path(args, captured, arch):
           f"{time.perf_counter() - t0:.1f} s, d={idx.cfg.d}, load "
           f"{idx.shard_load.tolist()}")
     hits, query_ms = [], []
+    hcalls.phase = "bucket"
     for b, src in enumerate(srcs):
         if b == QUERY_BATCHES:
             calls = idx.a2a.calls
+            hcalls.phase = "insert"
             gids = svc.insert_docs(new)
+            hcalls.phase = "bucket"
             check(idx.a2a.calls == calls + 1, "insert must exchange once")
             check(np.array_equal(gids, np.arange(N_DOCS, N_DOCS + N_NEW)),
                   "inserted gids")
@@ -705,9 +844,11 @@ def retrieval_path(args, captured, arch):
               and np.all(np.isinf(dist[~found, 0])), "answers within cr")
         hits.append(g[:, 0] == want)
     torch.cuda.synchronize()
+    hcalls.__exit__()
     launches = {kname: kernel.launches,
                 "bucket_search": kbs.bucket_search_cuda.launches,
-                "bucket_gather": kbs.bucket_gather_cuda.launches}
+                "bucket_gather": kbs.bucket_gather_cuda.launches,
+                "lsh_hash": klh.lsh_hash_cuda.launches}
     by_design = dict(kernel.launches_by_design)
     forwards = (N_DOCS + N_NEW) // BATCH + len(srcs)
     print(f"launches on the {arch} retrieval path: {launches} over "
@@ -718,6 +859,13 @@ def retrieval_path(args, captured, arch):
           f"every {kname} launch of the path must take the tensor-core "
           f"design: {by_design}")
     check(launches["bucket_search"] > 0, "the full scan never launched")
+    check(launches["lsh_hash"] == sum(hcalls.count.values())
+          and hcalls.count.get("bucket: H table", 0) > 0
+          and hcalls.count.get("build: H cols", 0) > 0,
+          f"every hash of the path must launch the hash kernel: "
+          f"{hcalls.count}")
+    print(f"lsh_hash on the {arch} retrieval path by phase and kind: "
+          f"{hcalls.count}")
     st = svc.service.stats
     check(st.drops == 0, "capacity drops in serving")
     share = float(np.mean(np.concatenate(hits)))
@@ -738,7 +886,7 @@ def retrieval_path(args, captured, arch):
           f"{float(cos.mean()):.4f}, min {float(cos.min()):.4f}")
     profile_forward(model, docs[srcs[0]], kname)
     return (launches, by_design, svc,
-            [docs[s] for s in srcs[:-1]] + [new[srcs[-1]]])
+            [docs[s] for s in srcs[:-1]] + [new[srcs[-1]]], hcalls)
 
 
 def wide_scan_checks(svc, query_tokens):
@@ -893,24 +1041,29 @@ def main() -> int:
 
     # each kernel's first inputs on each path, for the comparisons
     captured = {}
-    index_launches, idx, data = index_path(args, captured)
+    index_launches, idx, data, hcalls = index_path(args, captured)
     records = {
         "bucket_search": bucket_search_record(
             captured.pop("bucket_search")[1],
             index_launches["bucket_search"]),
         "bucket_gather": bucket_gather_record(
             *captured.pop("bucket_gather"), index_launches["bucket_gather"])}
-    lsh_launches = lsh_hash_path(idx, data, captured)
-    records["lsh_hash"] = lsh_hash_record(*captured.pop("lsh_hash"),
-                                          lsh_launches, idx)
+    hash_shapes = [dict(r, path="index") for r in hash_records(
+        hcalls, idx.stacked_params, idx.cfg.W)]
+    hash_launches = {"index": index_launches["lsh_hash"]}
+    own_launches = lsh_hash_path(idx, data, hcalls)
     print(f"index and hash paths peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    del idx, data
+    del idx, data, hcalls
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    launches, by_design, svc, query_tokens = retrieval_path(args, captured,
-                                                            "gemma-7b")
+    launches, by_design, svc, query_tokens, hcalls = retrieval_path(
+        args, captured, "gemma-7b")
+    hash_launches["gemma-7b"] = launches["lsh_hash"]
+    hash_shapes += [dict(r, path="gemma-7b") for r in hash_records(
+        hcalls, svc.index.stacked_params, svc.index.cfg.W)]
+    del hcalls
     records["flash_attention"] = flash_record(
         *captured.pop("flash_attention"), launches["flash_attention"],
         by_design, hmma["flash_attention"])
@@ -924,8 +1077,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    launches, by_design, svc, _ = retrieval_path(args, captured,
-                                                 "mamba2-130m")
+    launches, by_design, svc, _, hcalls = retrieval_path(args, captured,
+                                                         "mamba2-130m")
+    hash_launches["mamba2-130m"] = launches["lsh_hash"]
+    hash_shapes += [dict(r, path="mamba2-130m") for r in hash_records(
+        hcalls, svc.index.stacked_params, svc.index.cfg.W)]
+    del hcalls
     records["ssd_scan"] = ssd_record(*captured.pop("ssd_scan"),
                                      launches["ssd_scan"], by_design,
                                      hmma["ssd_scan"])
@@ -935,6 +1092,8 @@ def main() -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; total "
           f"{time.perf_counter() - t_start:.0f} s")
     del svc
+    records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
+                                          own_launches)
 
     print(card)
     order = ("bucket_search", "bucket_gather", "flash_attention", "ssd_scan",

@@ -9,7 +9,20 @@
 """
 from repro_torch.core.config import (LSHConfig, Scheme,
                                      collision_probability, p_collision)
-from repro_torch.core.index import DistributedLSHIndex, QueryResult
+from repro_torch.core.hashing import (HashParams, StackedHashParams, g_of,
+                                      gamma, hash_h, pack_buckets,
+                                      sample_params, sample_stacked_params,
+                                      shard_key, shard_of, table_key)
+from repro_torch.core.offsets import (query_offsets, query_offsets_by_table,
+                                      stacked_base_keys)
+from repro_torch.core.index import (DistributedLSHIndex, QueryResult,
+                                    first_occurrence_mask)
 
-__all__ = ["LSHConfig", "Scheme", "collision_probability", "p_collision",
-           "DistributedLSHIndex", "QueryResult"]
+__all__ = [
+    "LSHConfig", "Scheme", "collision_probability", "p_collision",
+    "HashParams", "StackedHashParams", "gamma", "g_of", "hash_h",
+    "pack_buckets", "sample_params", "sample_stacked_params", "table_key",
+    "shard_key", "shard_of",
+    "query_offsets", "query_offsets_by_table", "stacked_base_keys",
+    "DistributedLSHIndex", "first_occurrence_mask", "QueryResult",
+]

@@ -13,20 +13,19 @@ as their int32 bit pattern (equality of int32 words == equality of
 buckets; ORDER must be taken on the uint32 value, see ``as_uint32``).
 
 Every projection is IEEE float32 in a fixed summation order (see
-``_project``).  TF32 on the card would move values across a floor and
-flip buckets, so importing this module also turns TF32 off for matmuls
-and cuDNN.
+``_hash``), computed by the hash kernel on the card.  TF32 on the card
+would move values across a floor and flip buckets, so importing this
+module also turns TF32 off for matmuls and cuDNN.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
 from repro_torch.core import prng
 from repro_torch.core.config import LSHConfig, Scheme
-from repro_torch.kernels.types import tree_sum
+from repro_torch.kernels import lsh_hash as klh
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -60,8 +59,9 @@ class HashParams:
 @dataclasses.dataclass(frozen=True)
 class StackedHashParams:
     """All T tables' ``HashParams`` stacked on a leading table axis (the
-    index's canonical form).  ``gather`` selects per-row parameters so the
-    receive side hashes each routed row once under its own table."""
+    index's canonical form).  ``gather`` selects per-row parameters; the
+    index's receive side instead passes each row's table id to
+    ``hash_h``/``shard_key``, which read the stacked A in place."""
 
     A: torch.Tensor          # (T, d, k)
     b: torch.Tensor          # (T, k)
@@ -127,44 +127,78 @@ def sample_stacked_params(key: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# First layer H.  Params may carry leading batch dims (one table per row
-# after ``gather``): A (..., d, k) against x (..., n, d).
+# First layer H and second layer G: both floor((x a + b) / w), through the
+# hash kernel on the card and its plain version on the CPU
+# (``kernels/lsh_hash.py``), in one arithmetic: every product rounded once,
+# summed in ``tree_sum``'s fixed pairwise order.  A library matmul picks
+# its summation order by shape and device, and a flipped floor moves a
+# point to another bucket: the insert, the query dispatch and the
+# receive-side re-hash must agree exactly, on the CPU and on the card.
+#
+# Params may be one table (A (d, k)) or stacked (A (T, d, k)): against x
+# (n, d) every table hashes every row, (T, n, k); against x (T, ..., d)
+# table t hashes x[t].  ``table`` (integer ids covering x's leading dims)
+# puts each row under its own table of stacked params instead, without
+# gathering A per row.
 # ---------------------------------------------------------------------------
 
-def _project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-    """x (..., n, c) times a (..., c, k) -> (..., n, k): every product
-    rounded once, then summed over c by ``tree_sum``.  A library matmul
-    picks its summation order by shape and device, and a flipped floor
-    moves a point to another bucket: the insert, the query dispatch and
-    the receive-side re-hash must agree exactly, on the CPU and on the
-    card.  The (n, c, k) products are formed a slab of rows at a time."""
-    n, c, k = x.shape[-2], x.shape[-1], a.shape[-1]
+def _per_row(v: torch.Tensor, table: torch.Tensor,
+             hk: torch.Tensor) -> torch.Tensor:
+    """Stacked field v (T, ...) at each row's table, shaped to broadcast
+    against hk (*table.shape, ..., k) with its row axis kept."""
+    pad = (1,) * (hk.dim() - 1 - table.dim())
+    return v[table.to(torch.int64)].reshape(*table.shape, *pad,
+                                            *v.shape[1:])
+
+
+def _hash(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: float,
+          table=None, floor: bool = True) -> torch.Tensor:
+    """floor((x a + b) / w), or the quotient: a (..., d, k), b (..., k)."""
+    if x.dtype not in klh.DTYPES:
+        x = x.to(torch.float32)
+    if a.dim() == 2 or table is not None:
+        return klh.lsh_hash_cuda(x, a, b, w=w, table=table, floor=floor)
+    if a.dim() == 3 and x.dim() == 2:
+        # every table on every row: the tables' columns side by side
+        T, d, k = a.shape
+        out = klh.lsh_hash_cuda(x, a.permute(1, 0, 2).reshape(d, T * k),
+                                b.reshape(T * k), w=w, floor=floor)
+        return out.reshape(-1, T, k).movedim(1, 0)
+    # leading dims of params and x broadcast: each batch entry a table
+    n, d, k = x.shape[-2], x.shape[-1], a.shape[-1]
     batch = torch.broadcast_shapes(x.shape[:-2], a.shape[:-2])
-    step = max(1, (1 << 24) // max(1, c * k * math.prod(batch)))
-    parts = [tree_sum(x[..., i:i + step, :, None] * a[..., None, :, :], -2)
-             for i in range(0, n, step)]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+    out = klh.lsh_hash_cuda(
+        x.expand(*batch, n, d).reshape(-1, n, d),
+        a.expand(*batch, d, k).reshape(-1, d, k),
+        b.expand(*batch, k).reshape(-1, k), w=w, floor=floor)
+    return out.reshape(*batch, n, k)
 
 
-def gamma(params: HashParams, x: torch.Tensor, W: float) -> torch.Tensor:
+def gamma(params: HashParams, x: torch.Tensor, W: float,
+          table=None) -> torch.Tensor:
     """Gamma(x) = (x A + b) / W  with shape (..., n, k)."""
-    proj = _project(x.to(torch.float32), params.A)
-    return (proj + params.b.unsqueeze(-2)) / torch.tensor(
-        W, dtype=torch.float32)
+    return _hash(x, params.A, params.b, W, table, floor=False)
 
 
-def hash_h(params: HashParams, x: torch.Tensor, W: float) -> torch.Tensor:
+def hash_h(params: HashParams, x: torch.Tensor, W: float,
+           table=None) -> torch.Tensor:
     """H(x) = floor(Gamma(x)) as int32, shape (..., n, k)."""
-    return torch.floor(gamma(params, x, W)).to(torch.int32)
+    return _hash(x, params.A, params.b, W, table)
 
 
-def pack_buckets(params: HashParams, hk: torch.Tensor) -> torch.Tensor:
+def pack_buckets(params: HashParams, hk: torch.Tensor,
+                 table=None) -> torch.Tensor:
     """Pack (..., n, k) bucket vectors into (..., n, 2) int32 words (the
     bit patterns of the reference's uint32 pair)."""
     hu = as_uint32(hk).unsqueeze(-1)                     # (..., n, k, 1)
-    mult = params.pack_mult.unsqueeze(-3)                # (..., 1, k, 2)
+    if table is None:
+        mult = params.pack_mult.unsqueeze(-3)            # (..., 1, k, 2)
+        add = params.pack_add.unsqueeze(-2)              # (..., 1, 2)
+    else:
+        mult = _per_row(params.pack_mult, table, hk)
+        add = _per_row(params.pack_add, table, hk)
     packed = prng.mul_u32(hu, mult).sum(dim=-2)          # < k * 2**32
-    packed = (packed + params.pack_add.unsqueeze(-2)) & prng.M32
+    packed = (packed + add) & prng.M32
     return to_int32_bits(packed)
 
 
@@ -173,21 +207,20 @@ def pack_buckets(params: HashParams, hk: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _second_layer(hk: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
-                  D: float) -> torch.Tensor:
-    proj = _project(hk.to(torch.float32), alpha.unsqueeze(-1)).squeeze(-1)
-    proj = proj + beta.unsqueeze(-1)
-    return torch.floor(proj / torch.tensor(D, dtype=torch.float32)).to(
-        torch.int32)
+                  D: float, table=None) -> torch.Tensor:
+    return _hash(hk, alpha.unsqueeze(-1), beta.unsqueeze(-1), D,
+                 table).squeeze(-1)
 
 
-def g_of(params: HashParams, hk: torch.Tensor, D: float) -> torch.Tensor:
+def g_of(params: HashParams, hk: torch.Tensor, D: float,
+         table=None) -> torch.Tensor:
     """G(u) = floor((alpha.u + beta)/D) on bucket vectors (..., n, k)."""
-    return _second_layer(hk, params.alpha, params.beta, D)
+    return _second_layer(hk, params.alpha, params.beta, D, table)
 
 
-def g_cauchy_of(params: HashParams, hk: torch.Tensor,
-                D: float) -> torch.Tensor:
-    return _second_layer(hk, params.alpha_cauchy, params.beta, D)
+def g_cauchy_of(params: HashParams, hk: torch.Tensor, D: float,
+                table=None) -> torch.Tensor:
+    return _second_layer(hk, params.alpha_cauchy, params.beta, D, table)
 
 
 def g_sum_of(hk: torch.Tensor) -> torch.Tensor:
@@ -199,23 +232,23 @@ def g_sum_of(hk: torch.Tensor) -> torch.Tensor:
 # Scheme dispatch: bucket vector (..., n, k) -> shard key (int32) and shard
 # ---------------------------------------------------------------------------
 
-def shard_key(params: HashParams, cfg: LSHConfig,
-              hk: torch.Tensor) -> torch.Tensor:
+def shard_key(params: HashParams, cfg: LSHConfig, hk: torch.Tensor,
+              table=None) -> torch.Tensor:
     """The integer Key whose value determines the machine (paper sec. 3)."""
     if cfg.scheme == Scheme.SIMPLE:
-        return pack_buckets(params, hk)[..., 0]
+        return pack_buckets(params, hk, table)[..., 0]
     if cfg.scheme == Scheme.LAYERED:
-        return g_of(params, hk, float(cfg.D))
+        return g_of(params, hk, float(cfg.D), table)
     if cfg.scheme == Scheme.SUM:
         return g_sum_of(hk)
     if cfg.scheme == Scheme.CAUCHY:
-        return g_cauchy_of(params, hk, float(cfg.D))
+        return g_cauchy_of(params, hk, float(cfg.D), table)
     raise ValueError(f"unknown scheme {cfg.scheme}")
 
 
-def shard_of(params: HashParams, cfg: LSHConfig,
-             hk: torch.Tensor) -> torch.Tensor:
+def shard_of(params: HashParams, cfg: LSHConfig, hk: torch.Tensor,
+             table=None) -> torch.Tensor:
     """Machine id in [0, n_shards): the Key mod n_shards (floor mod, so
     negative Keys land in range too)."""
-    key = shard_key(params, cfg, hk)
+    key = shard_key(params, cfg, hk, table)
     return torch.remainder(key, cfg.n_shards).to(torch.int32)

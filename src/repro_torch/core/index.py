@@ -725,11 +725,14 @@ class DistributedLSHIndex:
     # Query: dispatch / scan / return, as the reference's three stage
     # bodies, every shard at once
     # ------------------------------------------------------------------
-    def _keys_of(self, params, offs):
-        """Offsets (..., L, d) under (broadcast) params -> (Key (..., L),
-        packed H (..., L, 2))."""
-        hk = hash_h(params, offs, self.cfg.W)
-        return shard_key(params, self.cfg, hk), pack_buckets(params, hk)
+    def _keys_of(self, offs, table=None):
+        """Offsets (T, N, d) under the stacked params, table t for row t,
+        or (S, R, L, d) with ``table`` (S, R) per routed row -> (Key
+        (..., L), packed H (..., L, 2))."""
+        sp = self.stacked_params
+        hk = hash_h(sp, offs, self.cfg.W, table)
+        return (shard_key(sp, self.cfg, hk, table),
+                pack_buckets(sp, hk, table))
 
     def _dispatch(self, q: torch.Tensor, m: int, Cq: int):
         """Stage 1: hash every local query's T x L offsets and route one
@@ -744,8 +747,7 @@ class DistributedLSHIndex:
         # (T, S, m_loc, L, d) offsets; table t from its own base key
         offs = query_offsets(self.stacked_keys[:, None, None, :],
                              qid.unsqueeze(0), q_loc.unsqueeze(0), L, cfg.r)
-        keyv, packed = self._keys_of(
-            self.stacked_params, offs.reshape(T, S * m_loc * L, d))
+        keyv, packed = self._keys_of(offs.reshape(T, S * m_loc * L, d))
         keyv = keyv.reshape(T, S, m_loc, L).permute(1, 2, 0, 3)
         packed = packed.reshape(T, S, m_loc, L, 2).permute(1, 2, 0, 3, 4)
         if cfg.scheme == Scheme.SIMPLE:
@@ -801,8 +803,7 @@ class DistributedLSHIndex:
 
         roffs = query_offsets_by_table(self.stacked_keys, rtab_safe,
                                        rid_safe, rq, L, cfg.r)  # (S,R,L,d)
-        rkey, rpacked = self._keys_of(
-            self.stacked_params.gather(rtab_safe), roffs)
+        rkey, rpacked = self._keys_of(roffs, rtab_safe)
         me = torch.arange(S, device=dev)[:, None, None]
         mine = (torch.remainder(rkey, S) == me) & rvalid[..., None]
         eqp = (rpacked[..., :, None, :] == rpacked[..., None, :, :]).all(-1)

@@ -194,7 +194,9 @@ def ssd_scan(x, a_log, b, c, dt):
 
 
 def lsh_hash(x, a, b, *, w: float):
-    """floor((x @ a + b) / w) -> int32 (n, K): the kernel on CUDA tensors,
-    its plain version on CPU tensors.  The reference pads n to 128 rows
-    and K to 128 lanes here; the kernel takes any n and K."""
+    """floor((x @ a + b) / w) -> int32 (n, K) in hash_h's arithmetic
+    (products rounded once, ``tree_sum``'s order, a division by w): the
+    kernel on CUDA tensors, its plain version on CPU tensors.  The
+    reference pads n to 128 rows and K to 128 lanes here; the kernel
+    takes any n and K."""
     return lsh_hash_cuda(x, a, b, w=w)

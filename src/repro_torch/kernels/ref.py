@@ -20,6 +20,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.types import tree_sum
+
 F32_MAX = float(torch.finfo(torch.float32).max)
 IMAX = 2 ** 31 - 1
 _M32 = 0xFFFFFFFF
@@ -201,9 +203,38 @@ def ssd_scan_ref(x, a_log, b, c, dt):
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
-def lsh_hash_ref(x, a, b, *, w: float):
-    """floor((x @ a + b) / w) as int32 (plain version of
-    ``lsh_hash_cuda``), in float32."""
-    proj = (torch.matmul(x.float(), a.float()) + b.float()) / torch.tensor(
-        w, dtype=torch.float32)
-    return torch.floor(proj).to(torch.int32)
+def tree_project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """x (..., n, c) times a (..., c, k) -> (..., n, k), float32: every
+    product rounded once, then summed over c by ``tree_sum``'s pairwise
+    order.  A library matmul picks its summation order by shape and
+    device, and a flipped floor moves a point to another bucket: the
+    insert, the query dispatch and the receive-side re-hash must agree
+    exactly, on the CPU and on the card.  The (n, c, k) products are
+    formed a slab of rows at a time."""
+    n, c, k = x.shape[-2], x.shape[-1], a.shape[-1]
+    batch = torch.broadcast_shapes(x.shape[:-2], a.shape[:-2])
+    step = max(1, (1 << 24) // max(1, c * k * math.prod(batch)))
+    parts = [tree_sum(x[..., i:i + step, :, None] * a[..., None, :, :], -2)
+             for i in range(0, n, step)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+def lsh_hash_ref(x, a, b, *, w: float, table=None, floor: bool = True):
+    """floor((x a + b) / w) as int32 (plain version of ``lsh_hash_cuda``,
+    same shapes and table modes): x converted to float32 exactly, the
+    projection by ``tree_project``, then ``+ b`` and an IEEE division by
+    w rounded to float32; ``floor=False`` returns the quotient."""
+    x = x.to(torch.float32)
+    d, K = a.shape[-2:]
+    lead = x.shape[:-1]
+    if a.dim() == 2:
+        proj = tree_project(x.reshape(-1, d), a) + b
+    elif table is not None:
+        t = table.to(torch.int64)
+        proj = (tree_project(x.reshape(*t.shape, -1, d), a[t])
+                + b[t].unsqueeze(-2))
+    else:
+        proj = (tree_project(x.reshape(a.shape[0], -1, d), a)
+                + b.unsqueeze(-2))
+    q = proj.reshape(*lead, K) / torch.tensor(w, dtype=torch.float32)
+    return torch.floor(q).to(torch.int32) if floor else q

@@ -14,9 +14,9 @@ kernel at every width; flash attention -- rtol = atol = 2e-5 in float32
 0.05 in bf16 (an output rounded to bf16 may land one bf16 step apart);
 the SSD scan -- the chunked kernel against the sequential plain version
 at rtol = atol = 2e-4 in float32 (the reference's chunked-vs-sequential
-tolerance) and 0.05 in bf16; the hash -- agreement >= 0.999 and
-|diff| <= 1 (a floor may flip within float rounding of an integer, as
-the reference's test allows).
+tolerance) and 0.05 in bf16; the hash -- BITWISE: the kernel, its
+plain version on the card and ``hash_h`` on the CPU compute one
+arithmetic (products rounded once, ``tree_sum``'s order, a division).
 The case builders here are shared with ``test_torch_bucket_search.py``.
 """
 import numpy as np
@@ -670,14 +670,26 @@ def test_ssd_kernel_rejects_bad_inputs():
 
 
 # ---------------------------------------------------------------------------
-# p-stable hash
+# p-stable hash: BITWISE kernel = plain version on the card = CPU hash_h
 # ---------------------------------------------------------------------------
 
-def _hash_close(got, want):
-    assert got.dtype == torch.int32 and got.shape == want.shape
-    got, want = got.cpu().long(), want.cpu().long()
-    assert float((got == want).double().mean()) >= 0.999
-    assert int((got - want).abs().max()) <= 1
+def _hash_equal(got, *wants):
+    """Every output bit equal (ints, or the float quotient's bits)."""
+    for want in wants:
+        assert got.dtype == want.dtype and got.shape == want.shape
+        g, w = got.cpu(), want.cpu()
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), float((g != w).double().mean())
+
+
+def _hash_case(n, d, K, T=None, seed=0):
+    g = torch.Generator().manual_seed(seed + n + d + K)
+    x = torch.randn((n, d), generator=g) / d ** 0.5
+    shape = (d, K) if T is None else (T, d, K)
+    a = torch.randn(shape, generator=g)
+    b = torch.rand(shape[:-2] + (K,), generator=g) * 0.5
+    return x, a, b
 
 
 @pytest.mark.gpu
@@ -687,18 +699,69 @@ def _hash_close(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lsh_hash_kernel_matches_plain_version(n, d, K, dtype):
     dev = _cuda()
-    g = torch.Generator().manual_seed(n + d + K)
-    x = torch.randn((n, d), generator=g).to(dev, dtype)
-    a = torch.randn((d, K), generator=g).to(dev)
-    b = (torch.rand((K,), generator=g) * 0.5).to(dev)
+    x, a, b = _hash_case(n, d, K)
+    x = x.to(dtype)
+    want = ref.lsh_hash_ref(x, a, b, w=0.5)                    # on the CPU
+    x, a, b = x.to(dev), a.to(dev), b.to(dev)
     before = klh.lsh_hash_cuda.launches
     got = klh.lsh_hash_cuda(x, a, b, w=0.5)
     torch.cuda.synchronize()
     assert klh.lsh_hash_cuda.launches == before + 1
-    _hash_close(got, ref.lsh_hash_ref(x, a, b, w=0.5))
+    _hash_equal(got, ref.lsh_hash_ref(x, a, b, w=0.5), want)
     # x read through its strides: a transposed view
     xt = x.t().contiguous().t()
-    _hash_close(klh.lsh_hash_cuda(xt, a, b, w=0.5), got)
+    _hash_equal(klh.lsh_hash_cuda(xt, a, b, w=0.5), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 10, 20, 33])
+@pytest.mark.parametrize("d", [1, 3, 64, 768, 3072])
+@pytest.mark.parametrize("n", [1, 61, 1001])
+def test_lsh_hash_kernel_bitwise_at_every_width(n, d, K):
+    dev = _cuda()
+    x, a, b = _hash_case(n, d, K)
+    x[0, : (d + 1) // 2] = -0.0                   # signed zeros in a dot
+    want = ref.lsh_hash_ref(x, a, b, w=0.25)
+    quot = ref.lsh_hash_ref(x, a, b, w=0.25, floor=False)
+    x, a, b = x.to(dev), a.to(dev), b.to(dev)
+    _hash_equal(klh.lsh_hash_cuda(x, a, b, w=0.25), want)
+    _hash_equal(klh.lsh_hash_cuda(x, a, b, w=0.25, floor=False), quot)
+    _hash_equal(klh.lsh_hash_cuda(x.bfloat16(), a, b, w=0.25),
+                ref.lsh_hash_ref(x.bfloat16().cpu(), a.cpu(), b.cpu(),
+                                 w=0.25))
+    # an unaligned strided view: every other row, from the second column
+    wide = torch.zeros((2 * n, d + 1), device=dev)
+    wide[::2, 1:] = x
+    _hash_equal(klh.lsh_hash_cuda(wide[::2, 1:], a, b, w=0.25), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2, 4])
+@pytest.mark.parametrize("d,K", [(64, 10), (768, 8), (3072, 8), (10, 1),
+                                 (3, 33)])
+def test_lsh_hash_kernel_per_row_tables(T, d, K):
+    """Stacked a (T, d, K): each row under its table id, or under x's
+    leading axis; int32 x as hk.to(float32) reads it."""
+    dev = _cuda()
+    x, a, b = _hash_case(8 * 13 * 4, d, K, T=T)
+    x = x.reshape(8, 13, 4, d)
+    tab = torch.from_numpy(np.random.default_rng(T).integers(
+        0, T, (8, 13)).astype(np.int32))
+    want = ref.lsh_hash_ref(x, a, b, w=0.5, table=tab)
+    xd, ad, bd, td = x.to(dev), a.to(dev), b.to(dev), tab.to(dev)
+    _hash_equal(klh.lsh_hash_cuda(xd, ad, bd, w=0.5, table=td),
+                ref.lsh_hash_ref(xd, ad, bd, w=0.5, table=td), want)
+    xl = x.reshape(T, -1, d)
+    _hash_equal(klh.lsh_hash_cuda(xl.to(dev), ad, bd, w=0.5),
+                ref.lsh_hash_ref(xl, a, b, w=0.5))
+    xi = (x * 1000).to(torch.int32)
+    _hash_equal(klh.lsh_hash_cuda(xi.to(dev), ad, bd, w=0.5, table=td),
+                ref.lsh_hash_ref(xi, a, b, w=0.5, table=tab))
+    bad = td.clone()
+    bad[0, 0] = T
+    got = klh.lsh_hash_cuda(xd, ad, bd, w=0.5, table=bad).cpu()
+    assert torch.all(got[0, 0] == -2 ** 31)
+    assert torch.equal(got[1:], want[1:])
 
 
 @pytest.mark.gpu
@@ -714,9 +777,11 @@ def test_lsh_hash_kernel_agrees_with_the_index_hash():
     A = torch.cat([params.table(t).A for t in range(2)], dim=1)
     b = torch.cat([params.table(t).b for t in range(2)])
     got = ops.lsh_hash(x, A, b, w=cfg.W)
+    cpu = params.to("cpu")
     for t in range(2):
-        _hash_close(got[:, 10 * t:10 * (t + 1)],
-                    hash_h(params.table(t), x, cfg.W))
+        _hash_equal(got[:, 10 * t:10 * (t + 1)],
+                    hash_h(params.table(t), x, cfg.W),
+                    hash_h(cpu.table(t), x.cpu(), cfg.W))
 
 
 @pytest.mark.gpu
@@ -731,7 +796,58 @@ def test_lsh_hash_kernel_rejects_bad_inputs():
         klh.lsh_hash_cuda(x, a.half(), b, w=1.0)
     with pytest.raises(ValueError, match="positive"):
         klh.lsh_hash_cuda(x, a, b, w=-1.0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        klh.lsh_hash_cuda(x, a[None], b[None], w=1.0,
+                          table=torch.zeros(4, dtype=torch.int32))
     assert klh.lsh_hash_cuda(x[:0], a, b, w=1.0).shape == (0, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["layered", "simple"])
+def test_index_hashes_through_the_kernel(scheme):
+    """Insert, dispatch and receive side hash on the card through the
+    kernel, never the plain version, and answer as a CPU index from the
+    same seed, integers equal."""
+    dev = _cuda()
+    from repro_torch.core import DistributedLSHIndex, LSHConfig, Scheme
+    cfg = LSHConfig(d=64, k=10, W=1.0, r=0.3, c=2.0, L=8, n_shards=8,
+                    n_tables=2, scheme=Scheme(scheme))
+    rng = np.random.default_rng(5)
+    data = (rng.standard_normal((6000, 64)) / 8).astype(np.float32)
+    qs = data[rng.integers(0, 5000, 96)] + (
+        rng.standard_normal((96, 64)) * 0.02).astype(np.float32)
+    plain_calls = []
+    real_ref = ref.lsh_hash_ref
+
+    def spy(x, *a, **kw):
+        plain_calls.append(x.device.type)
+        return real_ref(x, *a, **kw)
+    out = {}
+    ref.lsh_hash_ref = spy
+    try:
+        for name in ("cpu", dev):
+            idx = DistributedLSHIndex(cfg, device=name, k_neighbors=5)
+            before = klh.lsh_hash_cuda.launches
+            idx.build(data[:5000])
+            built = klh.lsh_hash_cuda.launches - before
+            before = klh.lsh_hash_cuda.launches
+            a = idx.query(qs)
+            queried = klh.lsh_hash_cuda.launches - before
+            idx.insert(data[5000:])
+            b = idx.query(qs)
+            out[str(name)] = (a, b, built, queried)
+    finally:
+        ref.lsh_hash_ref = real_ref
+    assert "cuda" not in plain_calls and "cpu" in plain_calls
+    _, _, built, queried = out[str(dev)]
+    # insert: H, plus G for layered; a query: dispatch and receive side
+    assert built == (2 if scheme == "layered" else 1)
+    assert queried == 2 * built
+    assert out["cpu"][2:] == (0, 0)
+    for got, want in zip(out[str(dev)][:2], out["cpu"][:2]):
+        for f in ("topk_gid", "n_within_cr", "fq", "query_load"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        np.testing.assert_allclose(got.topk_dist, want.topk_dist, **TOL)
 
 
 # ---------------------------------------------------------------------------

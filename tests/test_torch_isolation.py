@@ -175,3 +175,67 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
                           torch.zeros(5), w=1.0)
     assert klh.lsh_hash_cuda.launches == before
     assert h.shape == (5, 5) and h.dtype == torch.int32
+
+
+# Reference exports not ported yet, each with the ROADMAP Queue 1 item
+# that ports it.  Everything else the reference's packages export must
+# import from the port's package of the same name.
+NOT_PORTED = {
+    "core": {
+        "gh": "9", "sample_table_params": "9", "batch_query_offsets": "9",
+        "table_base_key": "9", "TrafficReport": "9",
+        "COLLECTIVES_PER_INSERT": "9", "COLLECTIVES_PER_QUERY": "9",
+        "simulate": "9", "StreamReport": "9", "simulate_stream": "9",
+        "lsh_topk_reference": "9", "recall_at_k": "9",
+        "nearest_neighbor": "9", "nearest_neighbors": "9",
+        "DispatchedBatch": "6", "ScannedBatch": "6",
+    },
+    "kernels": {},
+    "serving": {
+        "QueryPipeline": "8", "AsyncLSHService": "8", "AsyncQuery": "8",
+        "AsyncWrite": "8", "AdmissionFull": "8",
+    },
+    "models": {
+        "prefill": "11.3", "decode_step": "11.3", "init_cache": "11.3",
+        "count_params": "11.4", "loss_fn": "12",
+    },
+}
+
+
+def _reference_all(pkg):
+    """The reference package's ``__all__``, read from its source (no jax
+    import)."""
+    tree = ast.parse((_REPO / "src" / "repro" / pkg / "__init__.py")
+                     .read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"repro.{pkg} has no __all__")
+
+
+@pytest.mark.parametrize("pkg", sorted(NOT_PORTED))
+def test_port_exports_what_the_reference_exports(pkg):
+    import importlib
+    mod = importlib.import_module(f"repro_torch.{pkg}")
+    ref_all = _reference_all(pkg)
+    missing = [n for n in ref_all
+               if not hasattr(mod, n) and n not in NOT_PORTED[pkg]]
+    assert not missing, f"repro_torch.{pkg} lacks {missing}"
+    stale = [n for n in NOT_PORTED[pkg] if hasattr(mod, n)
+             or n not in ref_all]
+    assert not stale, f"allowance of repro_torch.{pkg} out of date: {stale}"
+    assert set(ref_all) - set(NOT_PORTED[pkg]) <= set(mod.__all__)
+
+
+def test_kernel_entry_points_are_their_modules():
+    """``repro_torch.kernels.lsh_hash`` is the wrapper's module and the
+    reference's entry point at once: calling it runs ``ops.lsh_hash``."""
+    from repro_torch import kernels
+    from repro_torch.kernels import lsh_hash, ops
+    g = torch.Generator().manual_seed(0)
+    x, a = torch.randn((6, 8), generator=g), torch.randn((8, 3), generator=g)
+    b = torch.zeros(3)
+    assert lsh_hash is kernels.lsh_hash and hasattr(lsh_hash, "plan")
+    assert torch.equal(lsh_hash(x, a, b, w=0.5),
+                       ops.lsh_hash(x, a, b, w=0.5))
