@@ -29,10 +29,25 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                exact-duplicate queries, insert 256 documents and answer
                one more batch; then the full scan at d = 3072 against the
                CSR gather, bitwise, before and after a ``compact()``;
+  serving   -- on the index of the index path (after its writes): the
+               staged query (``query_staged``: bitwise ``query``, 1, 0 and
+               1 exchanges a stage) and ``AsyncLSHService`` (bucket 64,
+               pipeline depth 2) over 16 buckets, bitwise the sync
+               service's answers, with the ms a bucket of both and the
+               host syncs of one pipeline ``submit``;
+  durable   -- snapshot of that index (seconds, bytes on disk), one insert
+               and one delete through a WAL-attached service, then, with
+               the live index freed, ``persist.restore`` (answers bitwise
+               those before the writes) and ``persist.recover`` at S = 8
+               (bitwise those after them), in a temporary directory;
   mamba2    -- the same service with mamba2-130m at its published width
                (24 SSD blocks, d_model 768, bf16) and documents of 1,024
                tokens, 8 of the TPU kernel's 128-step chunks (the SSD
-               kernel, 24 launches a forward), the index at d = 768.
+               kernel, 24 launches a forward), the index at d = 768; this
+               path builds through ``recover_or_build(snapshot_dir=...,
+               pipelined=True)`` (boot snapshot + WAL, the async front)
+               and ends with a warm restart from that directory, which
+               must answer a served batch with the same gids.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers also count per design, and every
@@ -51,12 +66,16 @@ anything.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -417,7 +436,237 @@ def index_path(args, captured):
                             "one bucket")
     print(f"device launches of one served tail bucket: {n_launch} "
           f"(hash kernel: 4 of them)")
-    return launches, idx, data, hcalls
+    return launches, idx, data, hcalls, dict(svc=svc, queries=queries,
+                                             K=K, bucket=bucket)
+
+
+def _answers(idx, queries, bucket, K, staged=False):
+    """Per bucket: (gids, distance bits, counts, fq, query load) of the
+    fused query (or of the staged one)."""
+    import numpy as np
+    out = []
+    for i in range(0, len(queries), bucket):
+        q = queries[i:i + bucket]
+        r = (idx.query_staged(q, k_neighbors=K) if staged
+             else idx.query(q, k_neighbors=K))
+        check(r.drops == 0, "query drops")
+        out.append((r.topk_gid, r.topk_dist.view(np.uint32),
+                    r.n_within_cr, r.fq, r.query_load))
+    return out
+
+
+def _same(a, b):
+    import numpy as np
+    return len(a) == len(b) and all(
+        np.array_equal(x, y) for p, q in zip(a, b) for x, y in zip(p, q))
+
+
+def _launch_counts():
+    from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import lsh_hash as klh
+    return {"bucket_search": kbs.bucket_search_cuda.launches,
+            "bucket_gather": kbs.bucket_gather_cuda.launches,
+            "lsh_hash": klh.lsh_hash_cuda.launches}
+
+
+def _reset_launches():
+    from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import lsh_hash as klh
+    kbs.bucket_search_cuda.launches = 0
+    kbs.bucket_gather_cuda.launches = 0
+    klh.lsh_hash_cuda.launches = 0
+
+
+def syncs_of_one_submit(idx, rows, K):
+    """Host syncs of one ``QueryPipeline.submit`` (after a warm one):
+    the synchronizing CUDA calls torch reports in sync-debug "warn"
+    mode, with the lines of the port that made them."""
+    import torch
+    from repro_torch.serving import QueryPipeline
+    pipe = QueryPipeline(idx, len(rows), k_neighbors=K, depth=2)
+    handle = lambda: [type("H", (), {"t_submit": 0.0})() for _ in rows]
+    pipe.submit(list(rows), handle())
+    pipe.drain()
+    torch.cuda.synchronize()
+    src = str(ROOT / "src")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            pipe.submit(list(rows), handle())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    pipe.drain()
+    hits = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, src) if w.filename.startswith(src) else os.path.basename(w.filename)}:{w.lineno}"
+        for w in hits)
+    return len(hits), dict(where)
+
+
+def pipelined_stream(idx, stream, K, bucket):
+    """``stream`` through a fresh AsyncLSHService (depth 2): wall ms a
+    bucket from the first submit to the drained answers, the in-flight
+    peak, and the answers."""
+    import numpy as np
+    from repro_torch.serving import AsyncLSHService
+    asvc = AsyncLSHService(idx, bucket_size=bucket,
+                           max_latency_ms=float("inf"), k_neighbors=K,
+                           pipeline_depth=2)
+    try:
+        t0 = time.perf_counter()
+        handles = asvc.submit_batch(stream)
+        asvc.drain()
+        ms = (time.perf_counter() - t0) / (len(stream) // bucket) * 1e3
+        peak = asvc.stats.inflight_peak
+    finally:
+        asvc.close()
+    check(all(h.done for h in handles), "unanswered async queries")
+    return ms, peak, (np.stack([h.gids for h in handles]),
+                      np.stack([h.dists for h in handles]).astype(
+                          np.float32),
+                      np.array([h.n_within_cr for h in handles]))
+
+
+def serving_path(idx, svc, queries, K, bucket):
+    """The staged query and the pipelined async service on the index as
+    the index path left it; returns its launch counts."""
+    import numpy as np
+    import torch
+    _reset_launches()
+    # ---- serve_staged: bitwise query(), exchanges 1 / 0 / 1 ------------
+    q = queries[:bucket]
+    c0 = idx.a2a.calls
+    disp = idx.query_dispatch(q)
+    c1 = idx.a2a.calls
+    scanned = idx.query_scan(disp, k_neighbors=K)
+    c2 = idx.a2a.calls
+    idx.query_return(scanned)
+    c3 = idx.a2a.calls
+    torch.cuda.synchronize()
+    check((c1 - c0, c2 - c1, c3 - c2) == (1, 0, 1),
+          f"staged exchanges {(c1 - c0, c2 - c1, c3 - c2)} != (1, 0, 1)")
+    n_b = len(queries) // bucket
+    t = {}
+    for kind in ("fused", "staged", "staged", "fused"):
+        t0 = time.perf_counter()
+        got = _answers(idx, queries, bucket, K, staged=kind == "staged")
+        t.setdefault(kind, []).append(
+            (time.perf_counter() - t0) / n_b * 1e3)
+        t.setdefault(kind + "_answers", got)
+    check(_same(t["staged_answers"], t["fused_answers"]),
+          "query_staged is not bitwise query()")
+    print(f"phase serve_staged: {n_b} buckets bitwise equal to query(), "
+          f"exchanges per stage (1, 0, 1); ms/bucket (host clock, answers "
+          f"on the host) fused {t['fused'][0]:.2f} {t['fused'][1]:.2f}, "
+          f"staged {t['staged'][0]:.2f} {t['staged'][1]:.2f}")
+
+    # ---- serve_pipelined: the async service against the sync one -------
+    # in turns sync, async, async, sync over one stream of 16 buckets
+    stream = np.concatenate([queries] * 4)
+    n_buckets = len(stream) // bucket
+    want, ms, peak = None, {"sync": [], "async": []}, 0
+    for kind in ("sync", "async", "async", "sync"):
+        if kind == "sync":
+            *got, m = serve(svc, stream)
+            torch.cuda.synchronize()
+        else:
+            m, peak, got = pipelined_stream(idx, stream, K, bucket)
+        ms[kind].append(m)
+        want = want or got
+        check(np.array_equal(got[0], want[0])
+              and np.array_equal(got[2], want[2])
+              and np.array_equal(got[1].view(np.uint32),
+                                 want[1].view(np.uint32)),
+              "the async service's answers are not bitwise the sync ones")
+    n_sync, where = syncs_of_one_submit(idx, queries[:bucket], K)
+    print(f"phase serve_pipelined: {n_buckets} buckets of {bucket}, depth "
+          f"2, bitwise the sync service; sync "
+          f"{', '.join(f'{m:.2f}' for m in ms['sync'])} ms/bucket, "
+          f"pipelined {', '.join(f'{m:.2f}' for m in ms['async'])} "
+          f"ms/bucket (wall, submit to drained), inflight peak {peak}; "
+          f"host syncs in one submit: {n_sync} {where}")
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    print(f"launches on the serving path: {launches}")
+    check(launches["lsh_hash"] > 0 and launches["bucket_gather"] > 0,
+          "a kernel of the serving path never launched")
+    return launches
+
+
+def durable_path(state, queries, K, bucket, seed):
+    """Snapshot, restore and recover at S = 8 of the index in ``state``
+    (its only holder: the live index is freed before the restore, so two
+    stores never share the card); returns its launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import persist
+    idx, svc = state.pop("idx"), state.pop("svc")
+    n, d = idx._next_gid, idx.cfg.d
+    rng = np.random.default_rng(seed + 1)
+    new = rng.standard_normal((4096, d), dtype=np.float32)
+    new *= np.float32(1.0 / math.sqrt(d))
+    victims = rng.choice(n, 512, replace=False)
+    _reset_launches()
+    before = _answers(idx, queries, bucket, K)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_snap_") as tmp:
+        wal = persist.WriteAheadLog(persist.wal_path(tmp))
+        t0 = time.perf_counter()
+        persist.snapshot(idx, tmp, wal=wal)
+        t_snap = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(tmp) for f in fs)
+        n_live = idx.n_live
+        print(f"phase snapshot: {n_live} live rows, {t_snap:.2f} s, "
+              f"{nbytes} bytes on disk")
+        svc.wal = wal
+        ins = svc.insert(new, gids=np.arange(n, n + len(new)))
+        dele = svc.delete(victims)
+        check(ins.drops == 0 and dele.n_points > 0, "WAL'd writes")
+        check(wal.n_records == 2, "the WAL must hold the two writes")
+        after = _answers(idx, queries, bucket, K)
+        wal.close()
+        svc.wal = None
+        del idx, svc
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"device memory after freeing the live index "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+
+        t0 = time.perf_counter()
+        r = persist.restore(tmp)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        check(r.device.type == "cuda" and r.n_live == n_live,
+              "restore: live rows")
+        check(_same(_answers(r, queries, bucket, K), before),
+              "restored answers are not bitwise the live index's")
+        print(f"phase restore: S = {r.cfg.n_shards}, {t_restore:.2f} s, "
+              f"answers bitwise those of the live index at the snapshot")
+        del r
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        rr = persist.recover(tmp)
+        torch.cuda.synchronize()
+        t_recover = time.perf_counter() - t0
+        check(rr.replayed_inserts == 1 and rr.replayed_deletes == 1
+              and rr.replayed_points == len(new), "recover: replay")
+        check(rr.index.cfg.n_shards == 8, "recover at S = 8")
+        check(_same(_answers(rr.index, queries, bucket, K), after),
+              "recovered answers are not bitwise the live index's after "
+              "the same writes")
+        rr.wal.close()
+        print(f"phase recover: S = 8, {t_recover:.2f} s (restore + replay "
+              f"of 1 insert of {len(new)} points and 1 delete of "
+              f"{len(victims)} gids), answers bitwise those of the live "
+              f"index after the same writes")
+        del rr
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    print(f"launches on the durable path: {launches}")
+    check(launches["lsh_hash"] > 0, "no hash launch on the durable path")
+    return launches
 
 
 def lsh_hash_path(idx, data, hcalls):
@@ -759,9 +1008,50 @@ def bucket_gather_record(a, kw, launches):
         "host_ms": enq_ms}
 
 
-def retrieval_path(args, captured, arch):
+def warm_restart(svc, snap_dir, cfg, model, build_kw, tokens, answer):
+    """Stop the durable pipelined service, warm-restart it from its
+    snapshot directory (restore + WAL replay of the streamed insert) and
+    answer ``tokens`` again: the same gids, bitwise the same distances.
+    Returns the restarted (stopped) service; removes the directory."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import AsyncLSHService, RetrievalService
+    svc.close()
+    svc.service.wal.close()
+    n_live = svc.index.n_live
+    t0 = time.perf_counter()
+    warm, rr = RetrievalService.recover_or_build(
+        cfg, model, None, snapshot_dir=snap_dir.name, pipelined=True,
+        **build_kw)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    try:
+        check(rr is not None and isinstance(warm.service, AsyncLSHService),
+              "warm restart through recover()")
+        check(rr.replayed_inserts == 1 and rr.index.n_live == n_live,
+              f"warm restart replayed {rr.replayed_inserts} inserts, "
+              f"{rr.index.n_live} of {n_live} rows")
+        g, dist, _ = warm.query(tokens)
+        check(np.array_equal(g, answer[0])
+              and np.array_equal(dist.view(np.uint32),
+                                 answer[1].view(np.uint32)),
+              "the warm-restarted service answers differently")
+        print(f"phase warm_restart {cfg.name}: step {rr.step}, "
+              f"{rr.index.n_live} rows, {rr.replayed_inserts} insert "
+              f"replayed, {t_warm:.2f} s; the last batch answered with "
+              f"the same gids and distances")
+    finally:
+        warm.close()
+        rr.wal.close()
+        snap_dir.cleanup()
+    return warm
+
+
+def retrieval_path(args, captured, arch, durable=False):
     """``arch`` at its published width behind the retrieval service;
-    returns its launch counts, the service and the query tokens."""
+    returns its launch counts, the service and the query tokens.
+    ``durable`` builds through ``recover_or_build`` with a snapshot
+    directory and the pipelined front, and ends with a warm restart."""
     import importlib
 
     import numpy as np
@@ -806,10 +1096,20 @@ def retrieval_path(args, captured, arch):
     klh.lsh_hash_cuda.launches = 0
     hcalls = HashCalls().__enter__()
     t0 = time.perf_counter()
-    svc = RetrievalService.build(
-        cfg, model, docs, n_shards=8, scheme=Scheme.LAYERED, seed=args.seed,
-        bucket_size=BATCH, max_latency_ms=float("inf"), slack=slack,
-        **RETRIEVAL_LSH)
+    build_kw = dict(n_shards=8, scheme=Scheme.LAYERED, seed=args.seed,
+                    bucket_size=BATCH, max_latency_ms=float("inf"),
+                    slack=slack, **RETRIEVAL_LSH)
+    snap_dir = None
+    if durable:
+        # the durable pipelined service: boot snapshot + WAL, async front
+        snap_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_warm_")
+        svc, rr = RetrievalService.recover_or_build(
+            cfg, model, docs, snapshot_dir=snap_dir.name, pipelined=True,
+            **build_kw)
+        check(rr is None and svc.service.wal is not None,
+              "a cold durable build")
+    else:
+        svc = RetrievalService.build(cfg, model, docs, **build_kw)
     torch.cuda.synchronize()
     idx = svc.index
     check(idx.a2a.calls == 1, "build: one exchange")
@@ -820,7 +1120,7 @@ def retrieval_path(args, captured, arch):
           f"tokens embedded and indexed in "
           f"{time.perf_counter() - t0:.1f} s, d={idx.cfg.d}, load "
           f"{idx.shard_load.tolist()}")
-    hits, query_ms = [], []
+    hits, query_ms, answers = [], [], []
     hcalls.phase = "bucket"
     for b, src in enumerate(srcs):
         if b == QUERY_BATCHES:
@@ -837,6 +1137,7 @@ def retrieval_path(args, captured, arch):
         t0 = time.perf_counter()
         g, dist, _ = svc.query(tokens)
         query_ms.append((time.perf_counter() - t0) * 1e3)
+        answers.append((g, dist))
         check(idx.a2a.calls == calls + 2, "a query must exchange twice")
         check(g.shape == (BATCH, 1), "answer shape")
         found = g[:, 0] != IMAX
@@ -881,10 +1182,14 @@ def retrieval_path(args, captured, arch):
                                    device=emb.device)]
     print(f"retrieval {arch}: embed {embed_ms:.2f} ms per {BATCH}-document "
           f"batch of {doc_len} tokens (CUDA events, mean of 3), serve "
-          f"{1e3 * st.query_time_s / st.batches:.2f} ms per bucket; "
+          f"{1e3 * st.query_time_s / st.batches:.2f} ms per bucket "
+          f"({'async front: union of submit-to-retire intervals' if durable else 'sync service: flush time'}); "
           f"pairwise cosine of a batch's embeddings: mean "
           f"{float(cos.mean()):.4f}, min {float(cos.min()):.4f}")
     profile_forward(model, docs[srcs[0]], kname)
+    if durable:
+        svc = warm_restart(svc, snap_dir, cfg, model, build_kw,
+                           new[srcs[-1]], answers[-1])
     return (launches, by_design, svc,
             [docs[s] for s in srcs[:-1]] + [new[srcs[-1]]], hcalls)
 
@@ -1041,7 +1346,7 @@ def main() -> int:
 
     # each kernel's first inputs on each path, for the comparisons
     captured = {}
-    index_launches, idx, data, hcalls = index_path(args, captured)
+    index_launches, idx, data, hcalls, ctx = index_path(args, captured)
     records = {
         "bucket_search": bucket_search_record(
             captured.pop("bucket_search")[1],
@@ -1054,7 +1359,14 @@ def main() -> int:
     own_launches = lsh_hash_path(idx, data, hcalls)
     print(f"index and hash paths peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    del idx, data, hcalls
+    del data, hcalls
+    queries, K, bucket = ctx["queries"], ctx["K"], ctx["bucket"]
+    serving_path(idx, ctx["svc"], queries, K, bucket)
+    state = {"idx": idx, "svc": ctx.pop("svc")}
+    del idx
+    durable_path(state, queries, K, bucket, args.seed)
+    print(f"serving and durable paths peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1077,8 +1389,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
-    launches, by_design, svc, _, hcalls = retrieval_path(args, captured,
-                                                         "mamba2-130m")
+    launches, by_design, svc, _, hcalls = retrieval_path(
+        args, captured, "mamba2-130m", durable=True)
     hash_launches["mamba2-130m"] = launches["lsh_hash"]
     hash_shapes += [dict(r, path="mamba2-130m") for r in hash_records(
         hcalls, svc.index.stacked_params, svc.index.cfg.W)]

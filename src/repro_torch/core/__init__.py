@@ -15,7 +15,8 @@ from repro_torch.core.hashing import (HashParams, StackedHashParams, g_of,
                                       shard_key, shard_of, table_key)
 from repro_torch.core.offsets import (query_offsets, query_offsets_by_table,
                                       stacked_base_keys)
-from repro_torch.core.index import (DistributedLSHIndex, QueryResult,
+from repro_torch.core.index import (DispatchedBatch, DistributedLSHIndex,
+                                    QueryResult, ScannedBatch,
                                     first_occurrence_mask)
 
 __all__ = [
@@ -25,4 +26,5 @@ __all__ = [
     "shard_key", "shard_of",
     "query_offsets", "query_offsets_by_table", "stacked_base_keys",
     "DistributedLSHIndex", "first_occurrence_mask", "QueryResult",
+    "DispatchedBatch", "ScannedBatch",
 ]

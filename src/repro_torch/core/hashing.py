@@ -86,6 +86,9 @@ class StackedHashParams:
         return HashParams(*(getattr(self, f.name)[t]
                             for f in dataclasses.fields(HashParams)))
 
+    def as_tables(self) -> list[HashParams]:
+        return [self.table(t) for t in range(self.n_tables)]
+
     def gather(self, tables: torch.Tensor) -> HashParams:
         """(...,) table ids -> HashParams whose fields carry those leading
         dims (row i holds table ``tables[i]``'s parameters)."""

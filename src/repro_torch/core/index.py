@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -44,7 +45,7 @@ import torch
 
 from repro_torch.core import prng, store_layout
 from repro_torch.core.config import LSHConfig, Scheme
-from repro_torch.core.hashing import (StackedHashParams, hash_h,
+from repro_torch.core.hashing import (HashParams, StackedHashParams, hash_h,
                                       pack_buckets, sample_stacked_params,
                                       shard_key)
 from repro_torch.core.offsets import (query_offsets, query_offsets_by_table,
@@ -282,6 +283,53 @@ class QueryResult:
     def k_neighbors(self) -> int:
         return self.topk_dist.shape[1]
 
+    @property
+    def best_dist(self) -> np.ndarray:
+        """(m,) nearest returned distance -- the old best-1 view.
+
+        .. deprecated:: use ``topk_dist[:, 0]`` instead.
+        """
+        warnings.warn("QueryResult.best_dist is deprecated; use "
+                      "topk_dist[:, 0]", DeprecationWarning, stacklevel=2)
+        return self.topk_dist[:, 0]
+
+    @property
+    def best_gid(self) -> np.ndarray:
+        """(m,) nearest returned gid -- the old best-1 view.
+
+        .. deprecated:: use ``topk_gid[:, 0]`` instead.
+        """
+        warnings.warn("QueryResult.best_gid is deprecated; use "
+                      "topk_gid[:, 0]", DeprecationWarning, stacklevel=2)
+        return self.topk_gid[:, 0]
+
+
+@dataclasses.dataclass
+class DispatchedBatch:
+    """Device-resident output of ``query_dispatch`` (stage 1 of 3).
+
+    ``recv`` is the post-exchange routed payload: each shard's (S*Cq,
+    d+2) int32 block of [q | qid | table] rows.  ``query_scan`` reads it.
+    """
+    recv: torch.Tensor        # (S, S*Cq, d+2) routed int32 payload
+    fq: torch.Tensor          # (S, m/S) rows shipped per query
+    drops: torch.Tensor       # (S,) capacity drops per source shard
+    m: int
+    Cq: int
+
+
+@dataclasses.dataclass
+class ScannedBatch:
+    """Device-resident output of ``query_scan`` (stage 2 of 3).
+
+    ``ret`` holds each shard's local per-qid top-K (bitcast distances,
+    gids, emit count): the routed return payload ``query_return`` reads.
+    """
+    ret: torch.Tensor         # (S, m, 2K+1) int32 return payload
+    recv_load: torch.Tensor   # (S,) live rows received per shard
+    m: int
+    K: int
+
 
 def _host_query_result(gtopd, gtopg, gemit, fq, load, drops) -> QueryResult:
     gtopd = gtopd.cpu().numpy()
@@ -326,6 +374,9 @@ class DistributedLSHIndex:
         self._stacked_params = sample_stacked_params(kp, cfg).to(self.device)
         self._stacked_keys = stacked_base_keys(kq, cfg.n_tables).to(
             self.device)
+        # the root offset key (the stacked keys derive from it); kept for
+        # snapshots, as the reference keeps it
+        self.base_key = kq.to(self.device)
         self.a2a = AllToAll()
         self.store: Optional[StoreState] = None
         self._shard_load = np.zeros((cfg.n_shards,), np.int64)
@@ -371,6 +422,44 @@ class DistributedLSHIndex:
             raise RuntimeError("cannot replace offset keys on a populated "
                                "index -- assign before build()/insert()")
         self._stacked_keys = keys.to(self.device)
+
+    @property
+    def params(self) -> HashParams:
+        """Table 0's parameters (the single-table view)."""
+        return self._stacked_params.table(0)
+
+    @property
+    def table_params(self) -> list[HashParams]:
+        """.. deprecated:: use ``stacked_params`` (``.as_tables()`` /
+        ``.table(t)`` for per-table views)."""
+        warnings.warn(
+            "DistributedLSHIndex.table_params is deprecated; use "
+            "stacked_params.as_tables()", DeprecationWarning, stacklevel=2)
+        return self.stacked_params.as_tables()
+
+    @table_params.setter
+    def table_params(self, tables) -> None:
+        warnings.warn(
+            "assigning DistributedLSHIndex.table_params is deprecated; "
+            "assign stacked_params = StackedHashParams.stack(tables)",
+            DeprecationWarning, stacklevel=2)
+        self.stacked_params = StackedHashParams.stack(list(tables))
+
+    @property
+    def table_keys(self) -> list[torch.Tensor]:
+        """.. deprecated:: use ``stacked_keys`` (a (T, 2) key stack)."""
+        warnings.warn(
+            "DistributedLSHIndex.table_keys is deprecated; use "
+            "stacked_keys", DeprecationWarning, stacklevel=2)
+        return [self._stacked_keys[t] for t in range(self.cfg.n_tables)]
+
+    @table_keys.setter
+    def table_keys(self, keys) -> None:
+        warnings.warn(
+            "assigning DistributedLSHIndex.table_keys is deprecated; "
+            "assign stacked_keys = torch.stack(keys)",
+            DeprecationWarning, stacklevel=2)
+        self.stacked_keys = torch.stack(list(keys))
 
     # ------------------------------------------------------------------
     # Capacity policy (as the reference)
@@ -862,22 +951,67 @@ class DistributedLSHIndex:
         gemit = recv[..., 2 * K].sum(dim=1, dtype=torch.int32)
         return gtopd.reshape(m, K), gtopg.reshape(m, K), gemit.reshape(m)
 
-    def query(self, queries, k_neighbors: Optional[int] = None
-              ) -> QueryResult:
-        """Answer a batch of queries (m, d), m divisible by n_shards."""
+    def _check_query_batch(self, queries, k_neighbors: Optional[int]):
+        """The batch on the index's device, its size and its K."""
         if self.store is None:
             raise RuntimeError("call build() or insert() first")
-        cfg = self.cfg
-        S = cfg.n_shards
+        S = self.cfg.n_shards
         q = torch.as_tensor(queries, dtype=torch.float32,
                             device=self.device)
         m = q.shape[0]
         if m % S:
             raise ValueError(f"m={m} must divide by n_shards={S}")
+        return q, m, self._check_k(k_neighbors)
+
+    def _check_k(self, k_neighbors: Optional[int]) -> int:
         K = self.k_neighbors if k_neighbors is None else k_neighbors
         if not 1 <= K <= 128:
             raise ValueError(f"k_neighbors={K} not in [1, 128]")
-        r, fq, drops = self._dispatch(q, m, self._query_capacity(m // S))
+        return K
+
+    def query(self, queries, k_neighbors: Optional[int] = None
+              ) -> QueryResult:
+        """Answer a batch of queries (m, d), m divisible by n_shards."""
+        q, m, K = self._check_query_batch(queries, k_neighbors)
+        r, fq, drops = self._dispatch(
+            q, m, self._query_capacity(m // self.cfg.n_shards))
         ret, recv_load = self._scan(r, m, K)
         gtopd, gtopg, gemit = self._return(ret, m, K)
         return _host_query_result(gtopd, gtopg, gemit, fq, recv_load, drops)
+
+    # ------------------------------------------------------------------
+    # Staged query: the same three stages, separately invocable.  Each
+    # returns device tensors; the answers reach the host only when the
+    # caller fetches them (``query_staged``, or a pipeline's retire).
+    # ------------------------------------------------------------------
+    def query_dispatch(self, queries) -> DispatchedBatch:
+        """Stage 1/3: hash + route the batch through the dispatch
+        exchange (one)."""
+        q, m, _ = self._check_query_batch(queries, None)
+        Cq = self._query_capacity(m // self.cfg.n_shards)
+        recv, fq, drops = self._dispatch(q, m, Cq)
+        return DispatchedBatch(recv=recv, fq=fq, drops=drops, m=m, Cq=Cq)
+
+    def query_scan(self, disp: DispatchedBatch,
+                   k_neighbors: Optional[int] = None) -> ScannedBatch:
+        """Stage 2/3: per-shard bucket search over the routed payload; no
+        exchange."""
+        if self.store is None:
+            raise RuntimeError("call build() or insert() first")
+        K = self._check_k(k_neighbors)
+        ret, recv_load = self._scan(disp.recv, disp.m, K)
+        return ScannedBatch(ret=ret, recv_load=recv_load, m=disp.m, K=K)
+
+    def query_return(self, scanned: ScannedBatch):
+        """Stage 3/3: routed return exchange (one) + owner-shard K-way
+        merge.  Returns device (topk_dist^2, topk_gid, n_within_cr)."""
+        return self._return(scanned.ret, scanned.m, scanned.K)
+
+    def query_staged(self, queries, k_neighbors: Optional[int] = None
+                     ) -> QueryResult:
+        """The three stages back to back, fetched: bitwise ``query()``."""
+        disp = self.query_dispatch(queries)
+        scanned = self.query_scan(disp, k_neighbors=k_neighbors)
+        gtopd, gtopg, gemit = self.query_return(scanned)
+        return _host_query_result(gtopd, gtopg, gemit, disp.fq,
+                                  scanned.recv_load, disp.drops)

@@ -25,6 +25,7 @@ within 2 ulp everywhere (tested).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -108,6 +109,15 @@ def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a * b + c).float()
 
 
+@functools.lru_cache(maxsize=None)
+def _const(values, device: torch.device) -> torch.Tensor:
+    """A float32 constant (a float or a tuple of floats) on ``device``,
+    copied there once: a copy from pageable host memory waits for every
+    kernel queued on the device (a host sync), and the query path draws
+    offsets twice a batch."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     """uint32 draws -> float32 in [0, 1): random mantissa, exponent 0."""
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
@@ -117,8 +127,8 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape, minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32 (bitwise)."""
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = _const(float(minval), key.device)
+    hi = _const(float(maxval), key.device)
     f = _bits_to_unit(random_bits(key, shape))
     # XLA contracts the scale-and-shift into one fused multiply-add
     return torch.maximum(lo, _fma(f, hi - lo, lo))
@@ -191,8 +201,8 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     w = -_log1p_f32(-x * x)
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    c_lt = torch.tensor(_W_LT5, dtype=torch.float32, device=x.device)
-    c_ge = torch.tensor(_W_GE5, dtype=torch.float32, device=x.device)
+    c_lt = _const(tuple(_W_LT5), x.device)
+    c_ge = _const(tuple(_W_GE5), x.device)
     p = torch.where(lt, c_lt[0], c_ge[0])
     for i in range(1, len(_W_LT5)):
         p = _fma(p, w, torch.where(lt, c_lt[i], c_ge[i]))

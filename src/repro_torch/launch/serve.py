@@ -6,12 +6,18 @@ the paper's metrics (rows/query, load balance) beside latency.
       --docs 2048 --batches 4              # reduced config (the default)
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced  # full
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --docs 256
+  SNAP=$(mktemp -d)   # a fresh directory: the service owns what is in it
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --docs 256 \\
+      --snapshot-dir "$SNAP" --snapshot-every 2 --pipelined  # twice: the
+      # second run is a WARM restart from the snapshot + WAL tail
+  rm -rf "$SNAP"
 
 The documents and query draws are the reference driver's
 (``repro.launch.serve``): the port's threefry generator reproduces
 jax.random's integers bitwise.  The weights come from a
-``torch.Generator`` seeded with ``--seed``.  ``--snapshot-dir`` and
-``--pipelined`` wait for the durability and pipeline parts of the port.
+``torch.Generator`` seeded with ``--seed``.  ``--snapshot-dir`` makes
+the service durable (WAL + snapshots, warm restart), ``--pipelined``
+serves through ``AsyncLSHService``; both with the reference's meanings.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import persist
 from repro_torch.configs import get_config
 from repro_torch.core import Scheme, prng
 from repro_torch.core.index import resolve_device
@@ -52,14 +59,17 @@ def main(argv=None):
                          " collectives per step for any value)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--snapshot-dir", default=None,
-                    help="not ported yet (ROADMAP Queue 1 item 7)")
+                    help="durability: WAL every write there, snapshot the "
+                         "index, and WARM-RESTART from the latest snapshot "
+                         "+ WAL tail when one exists")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot (and truncate the WAL) every N query "
+                         "batches; 0 = only the boot snapshot")
     ap.add_argument("--pipelined", action="store_true",
-                    help="not ported yet (ROADMAP Queue 1 item 8)")
+                    help="serve through AsyncLSHService: pipelined query "
+                         "batches + background snapshots "
+                         "(bitwise-identical results)")
     args = ap.parse_args(argv)
-    if args.snapshot_dir:
-        raise NotImplementedError(
-            "--snapshot-dir needs snapshots and the write-ahead log, not "
-            "ported yet (ROADMAP Queue 1 item 7)")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
@@ -72,16 +82,25 @@ def main(argv=None):
     # the service bucket must divide by the shard count; round the
     # requested batch size up (pad-to-bucket absorbs the difference)
     bucket = -(-args.batch_size // N_SHARDS) * N_SHARDS
-    svc = RetrievalService.build(
-        cfg, model, doc_tokens, n_shards=N_SHARDS, device=dev,
-        bucket_size=bucket, r=0.2, L=args.L, k=8, W=0.5,
-        scheme=Scheme(args.scheme), seed=args.seed, n_tables=args.tables,
-        pipelined=args.pipelined)
-    load = svc.index.shard_load
-    print(f"[serve] {cfg.name} on {dev}: built index: {args.docs} docs, "
-          f"{time.monotonic() - t0:.1f}s, "
-          f"load max/avg={load.max() / max(load.mean(), 1):.1f}, "
-          f"drops={svc.index.build_result.drops}")
+    svc, rr = RetrievalService.recover_or_build(
+        cfg, model, doc_tokens, snapshot_dir=args.snapshot_dir,
+        n_shards=N_SHARDS, device=dev, bucket_size=bucket, r=0.2, L=args.L,
+        k=8, W=0.5, scheme=Scheme(args.scheme), seed=args.seed,
+        n_tables=args.tables, pipelined=args.pipelined)
+    if rr is not None:
+        # warm restart: snapshot + WAL tail instead of re-embed + rebuild
+        print(f"[serve] WARM restart from {args.snapshot_dir} "
+              f"(step {rr.step}, {rr.index.n_live} rows, "
+              f"{rr.replayed_inserts + rr.replayed_deletes} WAL batches "
+              f"replayed) in {time.monotonic() - t0:.1f}s")
+    else:
+        load = svc.index.shard_load
+        print(f"[serve] {cfg.name} on {dev}: built index: {args.docs} "
+              f"docs, {time.monotonic() - t0:.1f}s, "
+              f"load max/avg={load.max() / max(load.mean(), 1):.1f}, "
+              f"drops={svc.index.build_result.drops}")
+        if args.snapshot_dir:
+            print(f"[serve] boot snapshot -> {args.snapshot_dir}")
 
     lat = []
     for b in range(args.batches):
@@ -90,6 +109,15 @@ def main(argv=None):
         t0 = time.monotonic()
         svc.query(doc_tokens[src])
         lat.append(time.monotonic() - t0)
+        if (args.snapshot_dir and args.snapshot_every
+                and (b + 1) % args.snapshot_every == 0):
+            if args.pipelined:
+                # background snapshot: the engine thread fetches a
+                # consistent point, a writer thread does the file I/O
+                svc.service.snapshot(args.snapshot_dir).result()
+            else:
+                persist.snapshot(svc.index, args.snapshot_dir,
+                                 wal=svc.service.wal)
     svc.close()
     st = svc.service.stats
     if st.drops:

@@ -3,7 +3,8 @@
 The paper's workload with the model zoo as the feature extractor:
   index build: embed documents -> DistributedLSHIndex.build (one routed
                row per doc and table);
-  streaming:   embed new documents -> ShardedLSHService.insert;
+  streaming:   embed new documents -> ShardedLSHService.insert (or the
+               pipelined AsyncLSHService);
   query:       embed queries -> ShardedLSHService micro-batch -> entropy
                offsets -> Layered-LSH route -> per-shard bucket search
                -> (c,r)-NN results.
@@ -11,9 +12,9 @@ The paper's workload with the model zoo as the feature extractor:
 Embeddings are mean-pooled final hidden states, l2-normalised (the
 paper's unit-norm setting).  The S shards are a leading tensor axis on
 one device, so ``build`` takes ``n_shards`` and ``device`` where the
-reference takes a mesh.  Warm restart from a snapshot (``recover_or_
-build``) and the pipelined front-end wait for the durability and
-pipeline parts of the port (ROADMAP Queue 1 items 7 and 8).
+reference takes a mesh.  ``recover_or_build`` is the durable entry
+point: a warm restart from a snapshot directory (restore + WAL replay),
+or a cold build that writes the boot snapshot and attaches the WAL.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.core import DistributedLSHIndex, LSHConfig, Scheme
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer, hidden_states
 from repro_torch.serving.service import ShardedLSHService
+from repro_torch.serving.workers import AsyncLSHService, AsyncWrite
 
 
 # documents embedded per forward: the reference embeds a whole corpus in
@@ -58,7 +60,7 @@ class RetrievalService:
     lsh: LSHConfig
     model: Transformer
     index: DistributedLSHIndex
-    service: ShardedLSHService
+    service: "ShardedLSHService | AsyncLSHService"
 
     @classmethod
     def build(cls, cfg: ModelConfig, model: Transformer, doc_tokens, *,
@@ -72,11 +74,11 @@ class RetrievalService:
         is the index's (``cuda`` unless given); the model stays where it
         is.  ``slack`` is the index's capacity headroom over an even
         share of the shards (``DistributedLSHIndex``'s); at ``n_shards``
-        no skew of the embeddings can overflow a shard."""
-        if pipelined:
-            raise NotImplementedError(
-                "the pipelined front-end is not ported yet (ROADMAP Queue "
-                "1 item 8): pass pipelined=False")
+        no skew of the embeddings can overflow a shard.
+
+        pipelined=True serves through ``AsyncLSHService`` (the pipelined
+        query path + an engine thread, bitwise-identical answers); the
+        default stays the synchronous micro-batcher."""
         docs = embed_texts(model, doc_tokens)
         lsh = LSHConfig(d=int(docs.shape[1]), k=k, W=W, r=r, c=c, L=L,
                         n_shards=n_shards, scheme=scheme, seed=seed,
@@ -84,17 +86,79 @@ class RetrievalService:
         index = DistributedLSHIndex(lsh, device=device, slack=slack,
                                     k_neighbors=k_neighbors)
         index.build(docs)
-        service = ShardedLSHService(index, bucket_size=bucket_size,
-                                    max_latency_ms=max_latency_ms,
-                                    k_neighbors=k_neighbors)
+        front = AsyncLSHService if pipelined else ShardedLSHService
+        service = front(index, bucket_size=bucket_size,
+                        max_latency_ms=max_latency_ms,
+                        k_neighbors=k_neighbors)
         return cls(cfg=cfg, lsh=lsh, model=model, index=index,
                    service=service)
 
     @classmethod
-    def recover_or_build(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "warm restart needs snapshots and the write-ahead log, not "
-            "ported yet (ROADMAP Queue 1 item 7): use build()")
+    def recover_or_build(cls, cfg: ModelConfig, model: Transformer,
+                         doc_tokens, *, snapshot_dir: "str | None" = None,
+                         n_shards: int = 8, device=None,
+                         bucket_size: int = 64,
+                         max_latency_ms: float = 25.0,
+                         k_neighbors: int = 1, pipelined: bool = False,
+                         **build_kwargs):
+        """The durable entry point of ``launch/serve.py``.
+
+        With a ``snapshot_dir`` holding a snapshot: warm-restart (restore
+        at ``n_shards`` + WAL-tail replay through a WAL-attached service)
+        and skip the embed and build entirely.  Otherwise build fresh
+        from ``doc_tokens`` and, when a ``snapshot_dir`` is given, attach
+        a WriteAheadLog and write the boot snapshot so the service is
+        recoverable from its first streamed write.  Returns ``(service,
+        RecoverResult | None)`` -- None on a cold build.
+        """
+        from repro_torch import persist
+        if snapshot_dir and persist.has_snapshot(snapshot_dir):
+            rr = persist.recover(
+                snapshot_dir, device=device, n_shards=n_shards,
+                slack=build_kwargs.get("slack", 4.0),
+                service=dict(bucket_size=bucket_size,
+                             max_latency_ms=max_latency_ms,
+                             k_neighbors=k_neighbors))
+            # a warm restart keeps the SNAPSHOT's LSHConfig (stored rows
+            # were hashed under it); surface any build kwarg the caller
+            # changed since, instead of silently serving the old config
+            drift = {
+                kw: (v, getattr(rr.index.cfg, kw))
+                for kw, v in build_kwargs.items()
+                if hasattr(rr.index.cfg, kw)
+                and getattr(rr.index.cfg, kw) != v}
+            if drift:
+                import warnings
+                changed = {k: f"{want} (snapshot: {have})"
+                           for k, (want, have) in drift.items()}
+                warnings.warn(
+                    f"warm restart from {snapshot_dir} keeps the "
+                    f"snapshot's LSH config; ignoring changed flags "
+                    f"{changed} -- rebuild without --snapshot-dir (or a "
+                    f"fresh dir) to apply them", stacklevel=2)
+            service = rr.service
+            if pipelined:
+                # replay ran through the recovered synchronous service;
+                # serve through the pipelined front-end from here on,
+                # carrying its stats (replay counts) and WAL
+                service = AsyncLSHService(
+                    rr.index, bucket_size=bucket_size,
+                    max_latency_ms=max_latency_ms,
+                    k_neighbors=k_neighbors, wal=rr.wal,
+                    stats=rr.service.stats)
+            svc = cls(cfg=cfg, lsh=rr.index.cfg, model=model,
+                      index=rr.index, service=service)
+            return svc, rr
+        svc = cls.build(cfg, model, doc_tokens, n_shards=n_shards,
+                        device=device, bucket_size=bucket_size,
+                        max_latency_ms=max_latency_ms,
+                        k_neighbors=k_neighbors, pipelined=pipelined,
+                        **build_kwargs)
+        if snapshot_dir:
+            svc.service.wal = persist.WriteAheadLog(
+                persist.wal_path(snapshot_dir))
+            persist.snapshot(svc.index, snapshot_dir, wal=svc.service.wal)
+        return svc, None
 
     def insert_docs(self, doc_tokens) -> np.ndarray:
         """Embed and stream new documents into the index; returns gids."""
@@ -102,6 +166,8 @@ class RetrievalService:
             return np.empty((0,), np.int64)
         docs = embed_texts(self.model, doc_tokens)
         res = self.service.insert(docs)
+        if isinstance(res, AsyncWrite):
+            res = res.result()       # pipelined front-end returns a future
         if res.drops:
             # dropped rows are not the trailing ones, so the gid->doc
             # attribution below would silently lie -- refuse instead
@@ -124,4 +190,6 @@ class RetrievalService:
         return gids, dists, handles
 
     def close(self) -> None:
-        """Nothing to stop: the synchronous service has no threads."""
+        """Drain and stop a pipelined service (no-op for the sync one)."""
+        if isinstance(self.service, AsyncLSHService):
+            self.service.close()

@@ -8,11 +8,14 @@
     explicit ``flush()``/``drain()``;
   * streaming writes -- ``insert``/``delete`` route straight through the
     index's exchange append / tombstone path with capacity accounting;
+  * durability -- with a ``repro_torch.persist.WriteAheadLog`` attached,
+    every insert/delete batch is appended to the log (gids + raw points)
+    BEFORE it is applied, so a crash at any point is recoverable by
+    ``persist.recover`` (snapshot + idempotent WAL-tail replay);
   * accounting -- per-flush latency, occupancy, routed rows and overflow
-    drops accumulate into ``ServiceStats``.
-
-Durability (a write-ahead log) belongs to a later part of the port: the
-``wal`` argument accepts only ``None`` for now.
+    drops accumulate into ``ServiceStats``.  WAL-replayed writes go
+    through the same ``insert``/``delete`` entry points, so they are
+    counted too.
 
 The front-end is synchronous and deterministic (no threads): deadlines
 are checked on entry to ``submit``/``submit_batch``.
@@ -25,8 +28,10 @@ from typing import List, Optional
 
 import numpy as np
 
+import torch
+
 from repro_torch.core.index import (DeleteResult, DistributedLSHIndex,
-                                    InsertResult)
+                                    InsertResult, check_gid_range)
 
 
 @dataclasses.dataclass
@@ -76,6 +81,12 @@ class ServiceStats:
     store_sorted_rows: int = 0    # live rows in the bucket-sorted region
     store_tail_rows: int = 0      # live rows in the unsorted insert tail
     store_merges: int = 0         # LSM tail merges (incl. compactions)
+    # async front-end accounting (zero when serving synchronously)
+    queue_peak: int = 0           # deepest the admission queue has been
+    inflight_peak: int = 0        # most pipelined batches in flight at once
+    rejects: int = 0              # admissions refused (admission="reject")
+    snapshots: int = 0            # background snapshots written
+    snapshots_skipped: int = 0    # snapshot requests skipped (one in flight)
     # per-query latency reservoir (submit -> resolve, ms).  Bounded: keeps
     # the most recent _LAT_CAP samples so a long-lived service doesn't
     # grow without bound; percentiles reflect recent traffic.
@@ -137,7 +148,13 @@ class ServiceStats:
                 f"merges={self.store_merges} "
                 f"lat(p50/p99)={self.latency_p50_ms:.1f}/"
                 f"{self.latency_p99_ms:.1f}ms "
-                f"drops={self.drops}")
+                + (f"queue_peak={self.queue_peak} "
+                   f"inflight_peak={self.inflight_peak} "
+                   f"rejects={self.rejects} "
+                   f"snapshots={self.snapshots}"
+                   f"(+{self.snapshots_skipped} skipped) "
+                   if self.inflight_peak or self.queue_peak else "")
+                + f"drops={self.drops}")
 
 
 class ShardedLSHService:
@@ -151,16 +168,20 @@ class ShardedLSHService:
         """k_neighbors: top-K returned per query (defaults to the index's
         own k_neighbors).
 
-        wal: must be None (the write-ahead log is not ported yet).
+        wal: optional ``repro_torch.persist.WriteAheadLog``.  When
+        attached, every insert/delete batch is appended (gids + raw
+        float32 points) BEFORE it is applied to the index -- the
+        durability contract is "appended == will survive a crash"
+        (``persist.recover`` replays the tail idempotently on top of the
+        latest snapshot).  A batch the index would refuse never reaches
+        the log.
 
         clock: monotonic-seconds callable used for deadlines, latency
         and timing stats (injectable so SLO tests advance time without
         sleeping).
 
-        stats: share an existing ServiceStats."""
-        if wal is not None:
-            raise NotImplementedError(
-                "the port has no write-ahead log yet: pass wal=None")
+        stats: share an existing ServiceStats (the async front-end embeds
+        this service for its write path and keeps ONE accounting view)."""
         S = index.cfg.n_shards
         if bucket_size % S:
             raise ValueError(
@@ -178,6 +199,8 @@ class ShardedLSHService:
         self._pending: List[PendingQuery] = []
         self._pending_q: List[np.ndarray] = []
         self._deadline: Optional[float] = None
+        self.wal = wal
+        self._replaying = False   # persist.recover: apply without re-append
 
     # ------------------------------------------------------------------
     # Queries
@@ -285,8 +308,35 @@ class ShardedLSHService:
     # Streaming writes
     # ------------------------------------------------------------------
     def insert(self, points, gids=None) -> InsertResult:
-        """Route a batch of new points into the sharded store."""
+        """Route a batch of new points into the sharded store.
+
+        With a WAL attached the batch (explicit gids + raw points) is
+        appended to the log BEFORE it is applied; auto-assigned gids are
+        materialised from the index's allocator first so the logged batch
+        replays bit-identically.
+        """
         self._check_deadline()   # writes must not starve pending queries
+        if self.wal is not None and not self._replaying:
+            # the raw points go into the log: fetch them to the host
+            if isinstance(points, torch.Tensor):
+                points = points.detach().cpu().numpy()
+            points = np.asarray(points, np.float32)
+            if gids is None:
+                n = points.shape[0]
+                gids = np.arange(self.index._next_gid,
+                                 self.index._next_gid + n, dtype=np.int64)
+            gids = np.asarray(gids, np.int64)
+            # validate BEFORE appending: a batch the index would reject
+            # must never reach the log, or every future recover() replays
+            # it into the same exception and the service can't boot
+            if points.ndim != 2 or points.shape[1] != self.index.cfg.d:
+                raise ValueError(f"points must be (n, {self.index.cfg.d}), "
+                                 f"got {points.shape}")
+            if gids.shape[0] != points.shape[0]:
+                raise ValueError(f"gids ({gids.shape[0]}) / points "
+                                 f"({points.shape[0]}) length mismatch")
+            check_gid_range(gids)
+            self.wal.append_insert(gids, points)
         t0 = self._clock()
         res = self.index.insert(points, gids=gids)
         self.stats.insert_time_s += self._clock() - t0
@@ -298,9 +348,13 @@ class ShardedLSHService:
         return res
 
     def delete(self, gids) -> DeleteResult:
-        """Tombstone rows by global id."""
+        """Tombstone rows by global id (WAL-appended first, like insert)."""
         self._check_deadline()
-        res = self.index.delete(np.asarray(gids, np.int64).reshape(-1))
+        gids = np.asarray(gids, np.int64).reshape(-1)
+        if self.wal is not None and not self._replaying:
+            check_gid_range(gids)   # never log a batch the index rejects
+            self.wal.append_delete(gids)
+        res = self.index.delete(gids)
         self.stats.deletes += res.n_points
         self.stats.delete_rows += res.n_deleted
         self.stats.delete_batches += 1

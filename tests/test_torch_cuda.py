@@ -889,3 +889,147 @@ def test_reduced_mamba2_on_the_card_answers_as_on_the_cpu():
         g, d, _ = svc.query(docs[:64])
         assert g.shape == (64, 1) and svc.service.stats.drops == 0
         assert svc.index.a2a.calls == 3
+
+
+# ---------------------------------------------------------------------
+# The staged query, the pipelined service and snapshots on the card
+# ---------------------------------------------------------------------
+
+def _stream_data(n=4096, m=256, d=32, seed=5):
+    rng = np.random.default_rng(seed)
+    data = (rng.standard_normal((n, d)) / np.sqrt(d)).astype(np.float32)
+    qs = data[rng.integers(0, n, m)] + (
+        rng.standard_normal((m, d)) * 0.05).astype(np.float32)
+    return data, qs
+
+
+def _stream_cfg(T=2, S=8):
+    from repro_torch.core import LSHConfig
+    return LSHConfig(d=32, k=8, W=1.2, r=0.3, c=2.0, L=8, n_shards=S,
+                     n_tables=T)
+
+
+def _same_answers(a, b):
+    for f in ("topk_gid", "n_within_cr", "fq", "query_load"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    np.testing.assert_array_equal(a.topk_dist.view(np.uint32),
+                                  b.topk_dist.view(np.uint32))
+    assert a.drops == b.drops == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [1, 2])
+def test_staged_query_on_the_card_bitwise_equals_fused(T):
+    dev = _cuda()
+    from repro_torch.core import DistributedLSHIndex
+    data, qs = _stream_data()
+    idx = DistributedLSHIndex(_stream_cfg(T), device=dev, k_neighbors=5)
+    idx.build(data[:3000])
+    for step in ("unsorted", "sorted + tail"):
+        if step != "unsorted":
+            idx.compact()
+            idx.insert(data[3000:])
+        calls = idx.a2a.calls
+        disp = idx.query_dispatch(qs)
+        assert idx.a2a.calls == calls + 1
+        scanned = idx.query_scan(disp)
+        assert idx.a2a.calls == calls + 1
+        idx.query_return(scanned)
+        assert idx.a2a.calls == calls + 2
+        _same_answers(idx.query_staged(qs), idx.query(qs))
+
+
+@pytest.mark.gpu
+def test_async_stream_on_the_card_bitwise_equals_sync():
+    """Depth 2: a batch's pinned staging slot is refilled only after its
+    non-blocking copy ran.  Refilling early would hand a batch the next
+    bucket's queries -- caught here as an answer that differs from the
+    synchronous service's."""
+    dev = _cuda()
+    from repro_torch.core import DistributedLSHIndex
+    from repro_torch.serving import (AsyncLSHService, QueryPipeline,
+                                     ShardedLSHService)
+    data, qs = _stream_data(m=1024)
+
+    def index():
+        idx = DistributedLSHIndex(_stream_cfg(), device=dev, k_neighbors=5)
+        idx.build(data[:3000])
+        return idx
+
+    def drive(svc):
+        handles = []
+        for step in range(4):
+            handles += svc.submit_batch(qs[256 * step:256 * step + 200])
+            svc.insert(data[3000 + 200 * step:3200 + 200 * step])
+            svc.delete(np.arange(step, 3000, 97))
+            handles += svc.submit_batch(qs[:40])
+        svc.drain()
+        return (np.stack([h.gids for h in handles]),
+                np.stack([h.dists for h in handles]),
+                np.asarray([h.fq for h in handles]))
+
+    sync = ShardedLSHService(index(), bucket_size=64,
+                             max_latency_ms=float("inf"), k_neighbors=5)
+    g0, d0, f0 = drive(sync)
+    with AsyncLSHService(index(), bucket_size=64,
+                         max_latency_ms=float("inf"), k_neighbors=5,
+                         pipeline_depth=2) as asvc:
+        g1, d1, f1 = drive(asvc)
+    np.testing.assert_array_equal(g0, g1)
+    np.testing.assert_array_equal(d0.view(np.uint32), d1.view(np.uint32))
+    np.testing.assert_array_equal(f0, f1)
+    # back-to-back buckets through the pipeline alone: every slot reused
+    idx = index()
+    pipe = QueryPipeline(idx, 64, depth=2)
+    handles = [[type("H", (), {"t_submit": 0.0})() for _ in range(64)]
+               for _ in range(16)]
+    for b in range(16):
+        pipe.submit(list(qs[64 * b:64 * b + 64]), handles[b])
+    pipe.drain()
+    for b in range(16):
+        want = idx.query(qs[64 * b:64 * b + 64], k_neighbors=5)
+        np.testing.assert_array_equal(
+            np.stack([h.gids for h in handles[b]]), want.topk_gid)
+        np.testing.assert_array_equal(
+            np.stack([h.dists for h in handles[b]]).view(np.uint32),
+            want.topk_dist.view(np.uint32))
+
+
+@pytest.mark.gpu
+def test_cpu_snapshot_restores_on_the_card(tmp_path):
+    """A snapshot (and WAL tail) written on the CPU restores and recovers
+    on the card: integers equal, distances within tolerance of the CPU
+    index's answers; elastic restore at S = 4 on the card answers as the
+    restore at S = 8."""
+    dev = _cuda()
+    from repro_torch import persist
+    from repro_torch.core import DistributedLSHIndex
+    from repro_torch.serving import ShardedLSHService
+    data, qs = _stream_data()
+    snap = str(tmp_path)
+    idx = DistributedLSHIndex(_stream_cfg(), device="cpu", k_neighbors=5)
+    idx.build(data[:3000])
+    idx.delete(np.arange(0, 3000, 11))
+    wal = persist.WriteAheadLog(persist.wal_path(snap))
+    persist.snapshot(idx, snap, wal=wal)
+    want0 = idx.query(qs)
+    svc = ShardedLSHService(idx, bucket_size=64, wal=wal)
+    svc.insert(data[3000:])
+    svc.delete(np.arange(1, 3000, 13))
+    wal.close()
+    want1 = idx.query(qs)
+    got0 = persist.restore(snap, device=dev)
+    assert got0.device.type == "cuda"
+    rr = persist.recover(snap, device=dev)
+    elastic = persist.restore(snap, device=dev, n_shards=4)
+    for got, want in ((got0.query(qs), want0),
+                      (rr.index.query(qs), want1)):
+        for f in ("topk_gid", "n_within_cr", "fq", "query_load"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        np.testing.assert_allclose(got.topk_dist, want.topk_dist, **TOL)
+    e = elastic.query(qs)
+    g = got0.query(qs)
+    np.testing.assert_array_equal(e.topk_gid, g.topk_gid)
+    np.testing.assert_array_equal(e.topk_dist.view(np.uint32),
+                                  g.topk_dist.view(np.uint32))
+    rr.wal.close()

@@ -241,11 +241,35 @@ def test_service_answers_as_the_index(ref_dir, bucket):
     assert svc.stats.deletes == 5 and svc.stats.delete_rows == 5 * T
 
 
-def test_service_rejects_a_write_ahead_log():
+def test_service_rejects_a_write_ahead_log(tmp_path):
+    """With a write-ahead log attached, the service logs each write
+    before applying it, and rejects a batch the index would refuse
+    before it reaches the log (a logged bad batch would fail every
+    later recovery)."""
+    from repro_torch.persist import WriteAheadLog, iter_records
     cfg = LSHConfig(d=8, k=4, W=1.0, r=0.3, c=2.0, L=2, n_shards=2)
     idx = DistributedLSHIndex(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ShardedLSHService(idx, bucket_size=4, wal=object())
+    wal = WriteAheadLog(str(tmp_path / "wal.log"))
+    svc = ShardedLSHService(idx, bucket_size=4, wal=wal)
+    pts = np.ones((3, 8), np.float32)
+    for bad in (dict(points=np.ones((3, 5), np.float32)),
+                dict(points=pts, gids=[0, 1]),
+                dict(points=pts, gids=[0, 1, IMAX_GID])):
+        with pytest.raises(ValueError):
+            svc.insert(**bad)
+    with pytest.raises(ValueError):
+        svc.delete([-1])
+    assert wal.n_records == 0 and idx.store is None
+    svc.insert(pts)
+    svc.delete([1])
+    wal.close()
+    recs = list(iter_records(str(tmp_path / "wal.log")))
+    assert [r.op for r in recs] == [1, 2]
+    np.testing.assert_array_equal(recs[0].gids, [0, 1, 2])
+    assert idx.n_live == 2 * cfg.n_tables
+
+
+IMAX_GID = np.iinfo(np.int32).max
 
 
 def test_dispatch_and_receive_side_hash_agree(monkeypatch):

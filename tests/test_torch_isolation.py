@@ -1,8 +1,8 @@
 """The port stands alone: no jax, no reference package, no silent CPU.
 
 Importing every module of ``repro_torch`` (in a fresh interpreter) must
-leave ``jax`` and ``repro`` out of ``sys.modules``, and no line of the
-port or of ``chip_smoke.py`` may import them.  Every entry point -- the
+leave ``jax``, ``repro`` and ``ml_dtypes`` out of ``sys.modules``, and no
+line of the port or of ``chip_smoke.py`` may import them.  Every entry point -- the
 index, the model, the retrieval service, the serve CLI -- built without
 a ``device`` on a machine with no card raises instead of running on the
 CPU.
@@ -36,14 +36,17 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.serving.retrieval", "repro_torch.launch.serve",
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.ssd_scan", "repro_torch.kernels.lsh_hash",
-              "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m"):
+              "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m",
+              "repro_torch.persist.snapshot", "repro_torch.persist.wal",
+              "repro_torch.checkpoint.checkpoint",
+              "repro_torch.serving.pipeline", "repro_torch.serving.workers"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
-            "m.startswith('repro.')]\n"
+            "m.startswith('repro.') or m.split('.')[0] == 'ml_dtypes']\n"
             "print(bad)\n")
     env = dict(os.environ, PYTHONPATH=str(_REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -66,7 +69,8 @@ def test_no_source_line_imports_jax_or_the_reference(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "repro"), (path, name)
+            assert root not in ("jax", "jaxlib", "repro", "ml_dtypes"), (
+                path, name)
 
 
 def test_index_without_device_needs_a_card():
@@ -188,13 +192,11 @@ NOT_PORTED = {
         "simulate": "9", "StreamReport": "9", "simulate_stream": "9",
         "lsh_topk_reference": "9", "recall_at_k": "9",
         "nearest_neighbor": "9", "nearest_neighbors": "9",
-        "DispatchedBatch": "6", "ScannedBatch": "6",
     },
     "kernels": {},
-    "serving": {
-        "QueryPipeline": "8", "AsyncLSHService": "8", "AsyncQuery": "8",
-        "AsyncWrite": "8", "AdmissionFull": "8",
-    },
+    "serving": {},
+    "persist": {},
+    "checkpoint": {},
     "models": {
         "prefill": "11.3", "decode_step": "11.3", "init_cache": "11.3",
         "count_params": "11.4", "loss_fn": "12",

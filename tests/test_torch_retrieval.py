@@ -307,9 +307,55 @@ def test_mamba2_long_documents_need_the_lossless_slack():
 
 
 def test_unported_paths_raise(ref, model):
+    """The paths that raised before the durability and pipeline parts of
+    the port now serve: ``build(pipelined=True)`` fronts the index with
+    the async service, and ``recover_or_build`` without a snapshot
+    directory builds cold (no recovery result)."""
+    from repro_torch.serving import AsyncLSHService
     cfg = get_config("gemma-7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        RetrievalService.build(cfg, model, ref["docs"][:8], device="cpu",
-                               pipelined=True)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        RetrievalService.recover_or_build(cfg, model, ref["docs"][:8])
+    svc = RetrievalService.build(cfg, model, ref["docs"][:8], device="cpu",
+                                 pipelined=True)
+    assert isinstance(svc.service, AsyncLSHService)
+    svc.close()
+    svc, rr = RetrievalService.recover_or_build(cfg, model,
+                                                ref["docs"][:8],
+                                                device="cpu")
+    assert rr is None and isinstance(svc.service, ShardedLSHService)
+
+
+def test_warm_restart_and_pipelined_answers_match_sync(ref, model,
+                                                       tmp_path):
+    """Reduced gemma-7b on the CPU: a durable pipelined service answers
+    bitwise as the sync one, before and after a streamed insert; a warm
+    restart from its snapshot directory replays the insert from the WAL
+    and answers the same batch with the same gids and distances."""
+    cfg = get_config("gemma-7b", reduced=True)
+    docs, new = ref["docs"][:64], ref["new"][:16]
+    queries = np.concatenate([docs[:12], new[:4]])
+    snap = str(tmp_path / "snap")
+    kw = dict(device="cpu", bucket_size=16, k_neighbors=K, **LSH)
+    sync = RetrievalService.build(cfg, model, docs, **kw)
+    svc, rr = RetrievalService.recover_or_build(
+        cfg, model, docs, snapshot_dir=snap, pipelined=True, **kw)
+    assert rr is None and svc.service.wal is not None
+    for s in (sync, svc):
+        np.testing.assert_array_equal(s.insert_docs(new),
+                                      np.arange(64, 80))
+    g0, d0, _ = sync.query(queries)
+    g1, d1, _ = svc.query(queries)
+    np.testing.assert_array_equal(g0, g1)
+    np.testing.assert_array_equal(d0.view(np.uint32), d1.view(np.uint32))
+    # exact duplicates: some query finds its own document
+    assert (g1[:, 0] == np.r_[np.arange(12), np.arange(64, 68)]).any()
+    svc.close()
+    with pytest.warns(UserWarning, match="keeps the snapshot's LSH"):
+        warm, rr = RetrievalService.recover_or_build(
+            cfg, model, None, snapshot_dir=snap, pipelined=True,
+            **dict(kw, L=8))
+    assert rr.replayed_inserts == 1 and rr.index.n_live == 80
+    assert warm.lsh.L == LSH["L"]
+    g2, d2, _ = warm.query(queries)
+    np.testing.assert_array_equal(g2, g1)
+    np.testing.assert_array_equal(d2.view(np.uint32), d1.view(np.uint32))
+    warm.close()
+    rr.wal.close()
