@@ -4,7 +4,7 @@
 Run from the root of the repository:  python3 chip_smoke.py [--seed 0]
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one nvcc per source, all started together) and drives four paths:
+(one nvcc per source, all started together) and drives these paths:
 
   index     -- the Layered-LSH index over 2**22 planted points (d = 64, 8
                shards, 2 tables: the configuration of
@@ -20,6 +20,24 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                Map-phase inputs: its 2**22 stored points against the
                index's own projections of both tables side by side,
                bitwise what the build hashed;
+  simulate  -- the analytic simulator, the brute-force oracle, Multi-Probe
+               LSH and the datasets (``core/simulate.py``,
+               ``ref_search.py``, ``multiprobe.py``, ``data/``) at the
+               paper's Random scale, drawn on the card from --seed: the
+               index path's first served bucket against
+               ``lsh_topk_reference`` over its 2**22 points; Fig 4.1
+               (1,000,000 x 100, 100,000 queries, 64 shards, SIMPLE and
+               LAYERED at L = 4, 16, 64: Layered's f_q within its Theorem
+               8 bound and below Simple's rows); recall and recall@10 of
+               2,000 queries against all points, entropy and mplsh
+               probes; the card equal to the CPU on a sample of 65,536
+               points and the first 1,024 queries planted among them
+               (``simulate``, at a W where recall is not zero too,
+               ``simulate_stream``, ``nearest_neighbors``);
+               ``dedup_embeddings`` on that sample with its queries,
+               dropping rows, equal to the CPU's; Table 1 (the Wiki
+               stand-in, 1024 shards, all four schemes); every H, G and
+               Gamma of it through the hash kernel.  It runs last;
   retrieval -- the retrieval service of ``repro_torch.launch.serve`` with
                gemma-7b at its published width (28 layers, d_model 3072,
                bf16, weights drawn on the card from --seed): embed 2,048
@@ -109,6 +127,20 @@ RETRIEVAL_LSH = dict(r=0.2, c=2.0, k=8, W=0.5, L=16, n_tables=1,
                      k_neighbors=1)
 BF16_TOL = 0.05    # the reference's bf16 attention tolerance
 HASH_SAMPLE = 65536  # rows of each hash call checked against the CPU
+# the simulate path: the paper's Random scale (d = 100, 1M points, 100K
+# queries; the reference's benches cut it to 20,000 / 2,000), 64 shards
+# for Fig 4.1 and recall, 1024 for Table 1; recall against all points
+# for the first 2,000 queries (the candidate test is O(m n L)); the card
+# against the CPU on a sample
+SIM_N, SIM_M, SIM_SHARDS, SIM_L = 1_000_000, 100_000, 64, (4, 16, 64)
+RECALL_M, SAMPLE_N, SAMPLE_M = 2000, 65536, 1024
+# the sample's pairs at r = 0.3 share a bucket too rarely at W = 0.5 (k =
+# 10 and 12: ~2e-3 and ~7e-4 a table) for recall or dedup to be anything
+# but empty on 1,024 queries; these widths make both non-empty
+SAMPLE_WIDE_W, DEDUP_W = 1.2, 2.0
+# name: (d, W, k, r, c) -- benchmarks/paper_common.py:17-25
+SIM_DATASETS = {"random": (100, 0.5, 10, 0.3, 2.0),
+                "wiki": (256, 0.5, 12, 0.1, 2.0)}
 
 
 def check(cond, msg):
@@ -279,20 +311,32 @@ class HashCalls:
     while a path runs (``with HashCalls() as calls``): every call goes to
     the real wrapper, whose launch counter counts it; the first call of
     each (phase, kind) is kept with its arguments, and all are counted.
-    Kinds: "H" (float x) or "G" (the int32 bucket vectors), with the
-    tables side by side ("cols"), on x's leading axis ("lead") or by
-    per-row table ids ("table")."""
+    Kinds: "H" (float x), "G" (the int32 bucket vectors) or "Gamma" (the
+    float quotient), with the tables side by side ("cols"; "probes"
+    where x is (queries, probes, d), the simulator's offsets and probe
+    buckets), on x's leading axis ("lead") or by per-row table ids
+    ("table").  A phase whose name ends in " cpu" is a CPU reference of
+    the card's phase before it: its calls run the plain version on CPU
+    tensors, are tallied apart in ``cpu`` and fail on a card tensor; in
+    every other phase a call on a CPU tensor is counted like any other,
+    so that a count above the launches shows it."""
 
     def __init__(self):
         from repro_torch.kernels import lsh_hash as klh
         self.klh, self.DTYPES = klh, klh.DTYPES
-        self.phase, self.first, self.count = "build", {}, {}
+        self.phase, self.first, self.count, self.cpu = "build", {}, {}, {}
 
     def lsh_hash_cuda(self, x, a, b, **kw):
         import torch
-        kind = ("G " if x.dtype == torch.int32 else "H ") + (
+        if self.phase.endswith(" cpu"):
+            check(not x.is_cuda, f"{self.phase}: a hash on the card")
+            self.cpu[self.phase] = self.cpu.get(self.phase, 0) + 1
+            return self.klh.lsh_hash_cuda(x, a, b, **kw)
+        kind = ("Gamma " if not kw.get("floor", True) else
+                "G " if x.dtype == torch.int32 else "H ") + (
             "table" if kw.get("table") is not None
-            else "lead" if a.dim() == 3 else "cols")
+            else "lead" if a.dim() == 3
+            else "cols" if x.dim() <= 2 else "probes")
         key = f"{self.phase}: {kind}"
         self.count[key] = self.count.get(key, 0) + 1
         self.first.setdefault(key, (x, a, b, dict(kw)))
@@ -437,7 +481,9 @@ def index_path(args, captured):
     print(f"device launches of one served tail bucket: {n_launch} "
           f"(hash kernel: 4 of them)")
     return launches, idx, data, hcalls, dict(svc=svc, queries=queries,
-                                             K=K, bucket=bucket)
+                                             K=K, bucket=bucket,
+                                             served=(d4[:bucket],
+                                                     g4[:bucket]))
 
 
 def _answers(idx, queries, bucket, K, staged=False):
@@ -722,8 +768,8 @@ def hash_shape_record(key, args, calls, sp, W):
     """The hash kernel at one (phase, kind) of a path, on the first call's
     inputs: BITWISE its plain version on the card, and on a sample of
     HASH_SAMPLE rows the CPU's plain version (the function hash_h runs
-    there) and, with the tables side by side, hash_h of each table on the
-    CPU.  Times: the kernel, the plain version, the bound (bytes: every
+    there) and, with the tables side by side, hash_h of each table of
+    ``sp`` on the CPU (unless sp is None).  Times: the kernel, the plain version, the bound (bytes: every
     input read once, the output written once; operations: 2 d K a row at
     the float32 peak), the arithmetic floor without fused multiply-adds
     (2 d K instructions a row at half that peak), calls x (ms - bound)
@@ -747,7 +793,8 @@ def hash_shape_record(key, args, calls, sp, W):
     check(torch.equal(gs[fin], klh.lsh_hash_cuda(xs, as_, bs, **kws)[fin]),
           f"lsh_hash {key}: kernel differs from the CPU's plain version")
     d, K = a.shape[-2:]
-    if a.dim() == 2 and x.dtype == torch.float32:     # H, tables side by side
+    if sp is not None and a.dim() == 2 and x.dtype == torch.float32:
+        # H, the tables side by side
         k, cpu = sp.A.shape[-1], sp.to("cpu")
         for t in range(K // k):
             check(torch.equal(gs[fin][:, k * t:k * (t + 1)],
@@ -809,6 +856,216 @@ def lsh_hash_record(shapes, launches, own_launches):
                     for p in launches},
         "launches_by_path": launches, "ops_lsh_hash_launches": own_launches,
         "shapes": shapes}
+
+
+def topk_swaps(name, got, want, tol=1e-5):
+    """Two (dist, gid) top-K answers (m, K): distances within rtol = atol =
+    tol, gids equal except where two neighbours' distances agree within
+    tol (the gid then sits in the other answer at such a distance, or
+    ties that answer's last kept one).  Returns the swapped positions."""
+    import numpy as np
+    gd, gg = (np.asarray(a) for a in got)
+    wd, wg = (np.asarray(a) for a in want)
+    fin = np.isfinite(wd)
+    check(np.array_equal(np.isfinite(gd), fin)
+          and np.allclose(gd[fin], wd[fin], rtol=tol, atol=tol),
+          f"{name}: distances differ beyond {tol}")
+    swaps = 0
+    for r, c in zip(*np.nonzero(gg != wg)):
+        at = np.nonzero(wg[r] == gg[r, c])[0]
+        ref_d = wd[r, at] if len(at) else wd[r, -1:]
+        check(np.isclose(ref_d, gd[r, c], rtol=tol, atol=tol).any(),
+              f"{name}: row {r} gid {gg[r, c]} at {gd[r, c]} is no tie")
+        swaps += 1
+    return swaps
+
+
+def same_report(name, got, want):
+    """Every field of two simulator reports equal (arrays elementwise)."""
+    import dataclasses
+    import numpy as np
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        check(np.array_equal(a, b) if isinstance(b, np.ndarray) else a == b,
+              f"{name}: {f.name} {a} on the card, {b} on the CPU")
+
+
+def _timed_sim(fn):
+    """fn() and its host seconds, ending in a device sync."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def simulate_path(args, oracle):
+    """The analytic simulator, the brute-force oracle, Multi-Probe LSH and
+    the datasets on the card at the paper's Random scale; returns the
+    hash kernel's launches on the path and its HashCalls."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (LSHConfig, Scheme, lsh_topk_reference,
+                                  nearest_neighbors, simulate,
+                                  simulate_stream)
+    from repro_torch.data import dedup_embeddings, planted_random, tfidf_like
+    from repro_torch.kernels import lsh_hash as klh
+
+    # ---- the path: counts to 0, drive, read ------------------------------
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    hcalls = HashCalls().__enter__()
+    t_path = time.perf_counter()
+
+    # ---- the index's served bucket against its single-machine oracle ----
+    hcalls.phase = "oracle"
+    cfg, data, queries, served = oracle
+    (refd, refg), secs = _timed_sim(lambda: lsh_topk_reference(
+        cfg, data, queries, served[1].shape[1], data_chunk=1 << 16))
+    swaps = topk_swaps("index vs lsh_topk_reference", served, (refd, refg))
+    print(f"phase oracle: lsh_topk_reference over {len(data)} points (T = "
+          f"{cfg.n_tables}) for query ids 0-{len(queries) - 1}, {secs:.2f} "
+          f"s: the index's served bucket equal ({swaps} tie swaps, "
+          f"{int(np.isfinite(refd).sum())} neighbours)")
+
+    # ---- Random at the paper's size, drawn on the card ------------------
+    hcalls.phase = "fig41"
+    d, W, k, r, c = SIM_DATASETS["random"]
+    (data, queries, planted), secs = _timed_sim(lambda: planted_random(
+        SIM_N, SIM_M, d=d, r=r, seed=args.seed))
+    print(f"phase random: planted_random({SIM_N}, {SIM_M}, d={d}) on the "
+          f"card, {secs:.2f} s")
+    for L in SIM_L:
+        rows = {}
+        for scheme in (Scheme.SIMPLE, Scheme.LAYERED):
+            rcfg = LSHConfig(d=d, k=k, W=W, r=r, c=c, L=L,
+                             n_shards=SIM_SHARDS, scheme=scheme, seed=0)
+            rep, secs = _timed_sim(lambda: simulate(rcfg, data, queries))
+            check(rep.overflow_drops == 0, "simulate dropped rows")
+            rows[scheme] = rep.query_rows
+            print(f"fig41 L={L} {scheme.value}: query_rows {rep.query_rows} "
+                  f"fq_mean {rep.fq_mean} fq_bound {rep.fq_bound} "
+                  f"query load max {rep.query_load_max}, {secs:.2f} s")
+            if scheme == Scheme.LAYERED:
+                check(rep.fq_mean <= rep.fq_bound,
+                      f"L={L}: layered fq {rep.fq_mean} above its "
+                      f"Theorem 8 bound {rep.fq_bound}")
+        check(rows[Scheme.LAYERED] < rows[Scheme.SIMPLE],
+              f"L={L}: layered ships no fewer rows than simple")
+        print(f"fig41 L={L}: SIMPLE / LAYERED rows "
+              f"{rows[Scheme.SIMPLE] / rows[Scheme.LAYERED]}")
+
+    # ---- recall against all points, entropy and Multi-Probe -------------
+    hcalls.phase = "recall"
+    for probes in ("entropy", "mplsh"):
+        rcfg = LSHConfig(d=d, k=k, W=W, r=r, c=c, L=16, n_shards=SIM_SHARDS,
+                         scheme=Scheme.LAYERED, seed=0, probes=probes)
+        rep, secs = _timed_sim(lambda: simulate(
+            rcfg, data, queries[:RECALL_M], compute_recall=True,
+            k_neighbors=10, data_chunk=1 << 16))
+        # each recalled query emitted at least one candidate within cr
+        check(0 <= rep.recall <= 1 and 0 <= rep.recall_at_k <= 1
+              and rep.results_emitted >= rep.recall * RECALL_M,
+              f"recall {rep.recall}, recall@10 {rep.recall_at_k}, "
+              f"emitted {rep.results_emitted}")
+        print(f"recall {probes} L=16: recall {rep.recall} recall@10 "
+              f"{rep.recall_at_k} emitted {rep.results_emitted} fq_mean "
+              f"{rep.fq_mean} ({RECALL_M} queries against {SIM_N} points), "
+              f"{secs:.2f} s")
+
+    # ---- the card against the CPU on a sample ---------------------------
+    # the first SAMPLE_N points and the first SAMPLE_M queries planted at
+    # one of them, so that near pairs lie inside the sample
+    sd = data[:SAMPLE_N]
+    sq = queries[torch.nonzero(planted < SAMPLE_N)[:SAMPLE_M, 0]]
+    check(len(sq) == SAMPLE_M, "too few queries planted in the sample")
+    host = dict(data=sd.cpu(), queries=sq.cpu())
+    card = dict(data=sd, queries=sq)
+
+    def card_and_cpu(phase, fn):
+        """fn(data, queries, device) on the card under phase, then on the
+        CPU under phase + " cpu"."""
+        hcalls.phase = phase
+        got = fn(**card, device=None)
+        hcalls.phase = phase + " cpu"
+        return got, fn(**host, device="cpu")
+
+    t0 = time.perf_counter()
+    for scheme, probes, Ws in ((Scheme.LAYERED, "entropy", W),
+                               (Scheme.SIMPLE, "entropy", W),
+                               (Scheme.LAYERED, "mplsh", W),
+                               (Scheme.LAYERED, "entropy", SAMPLE_WIDE_W)):
+        rcfg = LSHConfig(d=d, k=k, W=Ws, r=r, c=c, L=16, n_shards=SIM_SHARDS,
+                         scheme=scheme, seed=0, probes=probes)
+        got, want = card_and_cpu("sample", lambda **kw: simulate(
+            rcfg, compute_recall=True, k_neighbors=10, **kw))
+        same_report(f"simulate {scheme.value} {probes} W={Ws}", got, want)
+        print(f"sample {scheme.value} {probes} W={Ws}: recall {got.recall} "
+              f"recall@10 {got.recall_at_k} query_rows {got.query_rows}")
+    # at the wide W the sample's planted pairs meet: the recall fields
+    # compared above are not all zero
+    check(got.recall > 0 and got.recall_at_k > 0,
+          f"W={SAMPLE_WIDE_W}: the sample recalls nothing")
+    rcfg = LSHConfig(d=d, k=k, W=W, r=r, c=c, L=16, n_shards=SIM_SHARDS,
+                     scheme=Scheme.LAYERED, seed=0, n_tables=2)
+    same_report("simulate_stream", *card_and_cpu(
+        "sample", lambda **kw: simulate_stream(
+            rcfg, n_prefix=SAMPLE_N // 2, insert_batch=SAMPLE_N // 8,
+            query_batch=256, **kw)))
+    hcalls.phase = "sample"
+    swaps = topk_swaps("nearest_neighbors", nearest_neighbors(sd, sq, 10),
+                       nearest_neighbors(host["data"], host["queries"], 10,
+                                         device="cpu"))
+    print(f"phase sample: {SAMPLE_N} points, {SAMPLE_M} queries planted "
+          f"among them: simulate (layered, simple, layered mplsh at W={W}; "
+          f"layered at W={SAMPLE_WIDE_W}; recall@10), simulate_stream "
+          f"(T = 2) equal on the card and the CPU in every field; "
+          f"nearest_neighbors top-10 within 1e-5, {swaps} tie swaps; "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- dedup on the sample with its near-duplicate queries ------------
+    t0 = time.perf_counter()
+    keep, want = card_and_cpu("dedup", lambda data, queries, device:
+                              dedup_embeddings(torch.cat([data, queries]),
+                                               r=r, W=DEDUP_W, device=device))
+    secs = time.perf_counter() - t0
+    drops = int((~keep).sum())
+    check(drops > 0, "dedup dropped no row: the comparison sees nothing")
+    check(np.array_equal(keep, want),
+          "dedup keep-masks differ between the card and the CPU")
+    print(f"phase dedup: {len(keep)} rows (W={DEDUP_W}), {drops} dropped "
+          f"({int((~keep[SAMPLE_N:]).sum())} of the {SAMPLE_M} planted "
+          f"queries), the keep-mask equal on the card and the CPU, "
+          f"{secs:.2f} s with the CPU's run")
+    print(f"CPU reference hashes (no launch): {hcalls.cpu}")
+    del data, queries, planted, sd, sq, card, host
+
+    # ---- Table 1: the Wiki stand-in on 1024 shards ----------------------
+    hcalls.phase = "table1"
+    d, W, k, r, c = SIM_DATASETS["wiki"]
+    (wiki, secs) = _timed_sim(lambda: [torch.from_numpy(a).cuda()
+                                       for a in tfidf_like(SIM_N, SIM_M, d=d)])
+    print(f"phase wiki: tfidf_like({SIM_N}, {SIM_M}, d={d}) on the host, "
+          f"{secs:.2f} s")
+    for scheme in Scheme:
+        rcfg = LSHConfig(d=d, k=k, W=W, r=r, c=c, L=16, n_shards=1024,
+                         scheme=scheme, seed=0)
+        rep, secs = _timed_sim(lambda: simulate(rcfg, *wiki))
+        print(f"table1 {scheme.value}: data load avg {rep.data_load_avg} "
+              f"max {rep.data_load_max}, query load avg "
+              f"{rep.query_load_avg} max {rep.query_load_max}, "
+              f"query_rows {rep.query_rows}, {secs:.2f} s")
+    del wiki
+    torch.cuda.synchronize()
+    hcalls.__exit__()
+    launches = klh.lsh_hash_cuda.launches
+    print(f"launches on the simulate path: {{'lsh_hash': {launches}}}; by "
+          f"phase and kind: {hcalls.count}; "
+          f"{time.perf_counter() - t_path:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    check(launches > 0 and launches == sum(hcalls.count.values()),
+          "every hash of the simulate path must launch the hash kernel")
+    return launches, hcalls
 
 
 def device_ms(fn, reps=5):
@@ -1359,8 +1616,14 @@ def main() -> int:
     own_launches = lsh_hash_path(idx, data, hcalls)
     print(f"index and hash paths peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    del data, hcalls
+    del hcalls
     queries, K, bucket = ctx["queries"], ctx["K"], ctx["bucket"]
+    # the index's stored points (on the host) and first served bucket, for
+    # the simulate path's oracle; that path runs last, so that every
+    # earlier path follows the same work as it did before it was added
+    oracle = (idx.cfg, data, queries[:bucket], ctx.pop("served"))
+    del data
+    torch.cuda.reset_peak_memory_stats()
     serving_path(idx, ctx["svc"], queries, K, bucket)
     state = {"idx": idx, "svc": ctx.pop("svc")}
     del idx
@@ -1401,9 +1664,15 @@ def main() -> int:
     bucket_search_record(captured.pop("bucket_search_mamba2-130m")[1],
                          launches["bucket_search"])
     print(f"mamba2-130m retrieval path peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; total "
-          f"{time.perf_counter() - t_start:.0f} s")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     del svc
+    torch.cuda.empty_cache()
+
+    hash_launches["simulate"], hcalls = simulate_path(args, oracle)
+    hash_shapes += [dict(r, path="simulate")
+                    for r in hash_records(hcalls, None, None)]
+    del oracle, hcalls
+    print(f"total {time.perf_counter() - t_start:.0f} s")
     records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
                                           own_launches)
 

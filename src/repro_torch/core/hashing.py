@@ -55,6 +55,10 @@ class HashParams:
     pack_mult: torch.Tensor  # (k, 2) int64 holding odd uint32 multipliers
     pack_add: torch.Tensor   # (2,)   int64 holding uint32
 
+    def to(self, device) -> "HashParams":
+        return HashParams(*(getattr(self, f.name).to(device)
+                            for f in dataclasses.fields(self)))
+
 
 @dataclasses.dataclass(frozen=True)
 class StackedHashParams:
@@ -122,11 +126,18 @@ def sample_params(key: torch.Tensor, cfg: LSHConfig) -> HashParams:
     return HashParams(A, b, alpha, beta, alpha_cauchy, pack_mult, pack_add)
 
 
+def sample_table_params(key: torch.Tensor,
+                        cfg: LSHConfig) -> list[HashParams]:
+    """One ``HashParams`` per fused table (length n_tables): entry 0 is
+    ``sample_params(key, cfg)``, entry t draws from ``table_key(key, t)``."""
+    return [sample_params(table_key(key, t), cfg)
+            for t in range(cfg.n_tables)]
+
+
 def sample_stacked_params(key: torch.Tensor,
                           cfg: LSHConfig) -> StackedHashParams:
-    """All T tables, table t drawn from ``table_key(key, t)``."""
-    return StackedHashParams.stack(
-        [sample_params(table_key(key, t), cfg) for t in range(cfg.n_tables)])
+    """The stacked form of ``sample_table_params`` (leading T axis)."""
+    return StackedHashParams.stack(sample_table_params(key, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -255,3 +266,9 @@ def shard_of(params: HashParams, cfg: LSHConfig, hk: torch.Tensor,
     negative Keys land in range too)."""
     key = shard_key(params, cfg, hk, table)
     return torch.remainder(key, cfg.n_shards).to(torch.int32)
+
+
+def gh(params: HashParams, cfg: LSHConfig, x: torch.Tensor,
+       table=None) -> torch.Tensor:
+    """GH(x) for points x (..., n, d) -> int32 Keys (scheme-dependent)."""
+    return shard_key(params, cfg, hash_h(params, x, cfg.W, table), table)

@@ -14,15 +14,16 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.hashing import table_key
-from repro_torch.kernels.types import sq_norms
+from repro_torch.kernels.types import sq_norms, sqrt_f32
 
 
 def offset_directions(keys: torch.Tensor, L: int, d: int) -> torch.Tensor:
     """keys (..., 2) -> (..., L, d) unit vectors, uniform on the sphere."""
     g = prng.normal(keys, (L, d))
-    # squared norm summed in a fixed order: the same offsets on every
-    # device, so dispatch and receive side hash them alike
-    norm = torch.sqrt(sq_norms(g)).unsqueeze(-1)
+    # squared norm summed in a fixed order and its root rounded alike:
+    # the same offsets on every device, so dispatch and receive side hash
+    # them alike
+    norm = sqrt_f32(sq_norms(g)).unsqueeze(-1)
     return g / torch.clamp_min(norm, 1e-12)
 
 
@@ -35,9 +36,23 @@ def query_offsets(base_key: torch.Tensor, qids: torch.Tensor,
     return qs.unsqueeze(-2) + torch.tensor(r, dtype=torch.float32) * dirs
 
 
+def batch_query_offsets(base_key: torch.Tensor, qids: torch.Tensor,
+                        qs: torch.Tensor, L: int, r: float) -> torch.Tensor:
+    """(m, L, d) offsets of queries qs (m, d) with ids qids (m,): the
+    reference's name for ``query_offsets`` under one base key."""
+    return query_offsets(base_key, qids, qs, L, r)
+
+
+def table_base_key(base_key: torch.Tensor, table: int) -> torch.Tensor:
+    """Offset base key of one table of a fused index: ``table_key``
+    (table 0 keeps ``base_key``)."""
+    return table_key(base_key, table)
+
+
 def stacked_base_keys(base_key: torch.Tensor, n_tables: int) -> torch.Tensor:
-    """(T, 2) per-table offset base keys; row t = ``table_key(base, t)``."""
-    return torch.stack([table_key(base_key, t) for t in range(n_tables)])
+    """(T, 2) per-table offset base keys; row t = ``table_base_key``."""
+    return torch.stack([table_base_key(base_key, t)
+                        for t in range(n_tables)])
 
 
 def query_offsets_by_table(base_keys: torch.Tensor, tables: torch.Tensor,

@@ -30,6 +30,8 @@ import math
 
 import torch
 
+from repro_torch.kernels.types import sqrt_f32
+
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _KS_PARITY = 0x1BD11BDA
@@ -200,7 +202,7 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     the CPU (``torch.erfinv`` rounds differently on 59% of normal draws)."""
     w = -_log1p_f32(-x * x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
     c_lt = _const(tuple(_W_LT5), x.device)
     c_ge = _const(tuple(_W_GE5), x.device)
     p = torch.where(lt, c_lt[0], c_ge[0])

@@ -29,6 +29,14 @@ def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x[..., 0]
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 square root rounded as IEEE has it, on every device: taken
+    in float64 and rounded once (exact for a square root, 53 >= 2 x 24 + 2
+    bits).  torch's float32 ``sqrt`` on the card is an ulp off the CPU's
+    for some inputs."""
+    return torch.sqrt(x.double()).float()
+
+
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
     """Squared norms over the last axis (``tree_sum`` of the squares)."""
     x = x.to(torch.float32)

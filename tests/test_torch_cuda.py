@@ -1033,3 +1033,126 @@ def test_cpu_snapshot_restores_on_the_card(tmp_path):
     np.testing.assert_array_equal(e.topk_dist.view(np.uint32),
                                   g.topk_dist.view(np.uint32))
     rr.wal.close()
+
+
+# ---------------------------------------------------------------------------
+# the simulator, the oracle and the datasets on the card
+# ---------------------------------------------------------------------------
+
+def _sim_cfg(scheme="layered", T=1, probes="entropy"):
+    """Random's d, r and k with the index tests' wider W = 1.2, so that a
+    few hundred queries find their planted points and the recall fields
+    compared are not all zero (at W = 0.5 the recall is about 0.0025)."""
+    from repro_torch.core import LSHConfig, Scheme
+    return LSHConfig(d=100, k=10, W=1.2, r=0.3, c=2.0, L=16, n_shards=64,
+                     scheme=Scheme(scheme), n_tables=T, probes=probes)
+
+
+def _sim_data(n=8192, m=512):
+    from repro_torch.data import planted_random
+    data, queries, _ = planted_random(n, m, d=100, r=0.3, seed=0,
+                                      device="cpu")
+    return data, queries
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme,T,probes", [
+    ("layered", 2, "entropy"), ("simple", 1, "entropy"),
+    ("layered", 1, "mplsh"), ("cauchy", 2, "entropy"), ("sum", 1, "mplsh")])
+def test_simulate_on_the_card_equals_the_cpu(scheme, T, probes):
+    """Every field of the card's reports equals the CPU's: the hashes are
+    the kernel's bits, offsets and probes agree across devices, and no
+    recall-deciding distance sits within a rounding of r or cr here."""
+    import dataclasses
+    from repro_torch.core import simulate, simulate_stream
+    dev = _cuda()
+    cfg = _sim_cfg(scheme, T, probes)
+    data, queries = _sim_data()
+    got = simulate(cfg, data.to(dev), queries.to(dev), compute_recall=True,
+                   k_neighbors=10)
+    want = simulate(cfg, data, queries, compute_recall=True,
+                    k_neighbors=10, device="cpu")
+    for f in dataclasses.fields(want):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert want.query_rows > 0 and want.recall > 0
+    kw = dict(n_prefix=4096, insert_batch=2048, query_batch=128)
+    got = simulate_stream(cfg, data, queries, **kw)
+    want = simulate_stream(cfg, data, queries, device="cpu", **kw)
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert np.array_equal(a, b), f.name
+
+
+@pytest.mark.gpu
+def test_nearest_neighbors_on_the_card_equals_the_cpu():
+    """The oracle's top-10 on the card: gids equal, distances within
+    rtol = atol = 1e-5 (the card's and the CPU's matmul sum in their own
+    orders, in IEEE float32)."""
+    from repro_torch.core import lsh_topk_reference, nearest_neighbors
+    dev = _cuda()
+    data, queries = _sim_data()
+    gd, gg = nearest_neighbors(data.to(dev), queries, 10)
+    wd, wg = nearest_neighbors(data, queries, 10, device="cpu")
+    np.testing.assert_array_equal(gg, wg)
+    np.testing.assert_allclose(gd, wd, **TOL)
+    cfg = _sim_cfg(T=2)
+    gd, gg = lsh_topk_reference(cfg, data, queries, 10)
+    wd, wg = lsh_topk_reference(cfg, data, queries, 10, device="cpu")
+    np.testing.assert_array_equal(gg, wg)
+    fin = np.isfinite(wd)
+    np.testing.assert_array_equal(np.isfinite(gd), fin)
+    np.testing.assert_allclose(gd[fin], wd[fin], **TOL)
+
+
+@pytest.mark.gpu
+def test_prng_draws_and_offsets_on_the_card_equal_the_cpu():
+    """Normal draws (their erfinv tail takes a square root) and entropy
+    offsets (a norm's square root) are BITWISE the CPU's: torch's float32
+    sqrt on the card is an ulp off on some inputs, so both root in
+    float64 (``types.sqrt_f32``)."""
+    from repro_torch.core import offsets, prng
+    dev = _cuda()
+    key = prng.split(prng.PRNGKey(0), 3)[0]
+    want = prng.normal(key, (1 << 20,))
+    assert torch.equal(prng.normal(key.to(dev), (1 << 20,)).cpu(), want)
+    assert (want.abs() > 3.3).any()          # the erfinv tail is drawn
+    qs = torch.randn((512, 100), generator=torch.Generator().manual_seed(0))
+    qids = torch.arange(512, dtype=torch.int32)
+    want = offsets.query_offsets(key, qids, qs, 64, 0.3)
+    got = offsets.query_offsets(key.to(dev), qids.to(dev), qs.to(dev), 64,
+                                0.3)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_simulator_hashes_launch_the_kernel():
+    """On the card every H, G and Gamma of the simulator, the probes, the
+    oracle and dedup launches the hash kernel, never the plain version;
+    the datasets draw there, the same bits as on the CPU."""
+    from repro_torch.core import lsh_topk_reference, simulate
+    from repro_torch.data import dedup_embeddings, planted_random
+    dev = _cuda()
+    plain_calls = []
+    real_ref = ref.lsh_hash_ref
+
+    def spy(x, *a, **kw):
+        plain_calls.append(x.device.type)
+        return real_ref(x, *a, **kw)
+    ref.lsh_hash_ref = spy
+    try:
+        data, queries, idx = planted_random(8192, 256, device=dev)
+        cpu = planted_random(8192, 256, device="cpu")
+        for g, w in zip((data, queries, idx), cpu):
+            assert torch.equal(g.cpu(), w)
+        before = klh.lsh_hash_cuda.launches
+        for probes in ("entropy", "mplsh"):
+            simulate(_sim_cfg(probes=probes), data, queries,
+                     compute_recall=True)
+        lsh_topk_reference(_sim_cfg(T=2), data, queries, 10)
+        keep = dedup_embeddings(torch.cat([data, queries]), r=0.3)
+        launched = klh.lsh_hash_cuda.launches - before
+    finally:
+        ref.lsh_hash_ref = real_ref
+    assert launched > 0 and "cuda" not in plain_calls
+    np.testing.assert_array_equal(
+        keep, dedup_embeddings(torch.cat(cpu[:2]), r=0.3, device="cpu"))

@@ -125,3 +125,45 @@ def test_query_offsets_by_table(T):
                                       torch.from_numpy(qs), L, 0.3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("scheme", ["simple", "layered", "sum", "cauchy"])
+def test_gh_equal_with_carried_params(scheme):
+    """GH(x) = shard_key(H(x)): the Keys equal for every scheme."""
+    jcfg, tcfg = _cfgs(scheme, 2)
+    jp, tp = _carried(jcfg, 2)
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal((200, 32)) / np.sqrt(32)).astype(np.float32)
+    for t in range(2):
+        np.testing.assert_array_equal(
+            th.gh(tp.table(t), tcfg, torch.from_numpy(x)).numpy(),
+            np.asarray(jh.gh(jp.table(t), jcfg, jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_table_params_and_keys_are_the_stacked_rows(T):
+    """sample_table_params entry t and table_base_key(key, t) are row t of
+    the stacked forms; the offsets of batch_query_offsets are the
+    reference's within 1e-6, table 1's too."""
+    _, tcfg = _cfgs("layered", T)
+    key = prng.split(prng.PRNGKey(3))[0]
+    tables = th.sample_table_params(key, tcfg)
+    stacked = th.sample_stacked_params(key, tcfg)
+    assert len(tables) == T
+    for t, p in enumerate(tables):
+        for f in FIELDS:
+            assert torch.equal(getattr(p, f), getattr(stacked.table(t), f))
+        assert torch.equal(toff.table_base_key(key, t),
+                           toff.stacked_base_keys(key, T)[t])
+    jkey = jax.random.split(jax.random.PRNGKey(3))[0]
+    rng = np.random.default_rng(T)
+    qs = rng.standard_normal((12, 32)).astype(np.float32)
+    for t in range(min(T, 2)):
+        want = joff.batch_query_offsets(
+            joff.table_base_key(jkey, t), jnp.arange(12, dtype=jnp.int32),
+            jnp.asarray(qs), 8, 0.3)
+        got = toff.batch_query_offsets(
+            toff.table_base_key(key, t), torch.arange(12, dtype=torch.int32),
+            torch.from_numpy(qs), 8, 0.3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6)

@@ -3,9 +3,9 @@
 Importing every module of ``repro_torch`` (in a fresh interpreter) must
 leave ``jax``, ``repro`` and ``ml_dtypes`` out of ``sys.modules``, and no
 line of the port or of ``chip_smoke.py`` may import them.  Every entry point -- the
-index, the model, the retrieval service, the serve CLI -- built without
-a ``device`` on a machine with no card raises instead of running on the
-CPU.
+index, the model, the retrieval service, the serve CLI, the simulator,
+the oracle, the datasets -- built without a ``device`` on a machine with
+no card raises instead of running on the CPU.
 """
 import ast
 import os
@@ -13,6 +13,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,7 +40,10 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.models.ssm", "repro_torch.configs.mamba2_130m",
               "repro_torch.persist.snapshot", "repro_torch.persist.wal",
               "repro_torch.checkpoint.checkpoint",
-              "repro_torch.serving.pipeline", "repro_torch.serving.workers"):
+              "repro_torch.serving.pipeline", "repro_torch.serving.workers",
+              "repro_torch.core.simulate", "repro_torch.core.multiprobe",
+              "repro_torch.core.ref_search", "repro_torch.core.accounting",
+              "repro_torch.data.datasets", "repro_torch.data.dedup"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -185,14 +189,8 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
 # that ports it.  Everything else the reference's packages export must
 # import from the port's package of the same name.
 NOT_PORTED = {
-    "core": {
-        "gh": "9", "sample_table_params": "9", "batch_query_offsets": "9",
-        "table_base_key": "9", "TrafficReport": "9",
-        "COLLECTIVES_PER_INSERT": "9", "COLLECTIVES_PER_QUERY": "9",
-        "simulate": "9", "StreamReport": "9", "simulate_stream": "9",
-        "lsh_topk_reference": "9", "recall_at_k": "9",
-        "nearest_neighbor": "9", "nearest_neighbors": "9",
-    },
+    "core": {},
+    "data": {"TokenPipeline": "12", "PipelineState": "12"},
     "kernels": {},
     "serving": {},
     "persist": {},
@@ -241,3 +239,23 @@ def test_kernel_entry_points_are_their_modules():
     assert lsh_hash is kernels.lsh_hash and hasattr(lsh_hash, "plan")
     assert torch.equal(lsh_hash(x, a, b, w=0.5),
                        ops.lsh_hash(x, a, b, w=0.5))
+
+
+def test_simulator_oracle_and_datasets_without_device_need_a_card():
+    from repro_torch.core import (Scheme, lsh_topk_reference,
+                                  nearest_neighbors, simulate,
+                                  simulate_stream)
+    from repro_torch.core.simulate import make_sim
+    from repro_torch.data import dedup_embeddings, planted_random
+    cfg = LSHConfig(d=8, k=4, W=1.0, r=0.3, c=2.0, L=2, n_shards=2,
+                    scheme=Scheme.LAYERED)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((32, 8)).astype(np.float32)
+    for fn in (lambda **kw: make_sim(cfg, **kw),
+               lambda **kw: simulate(cfg, x, x[:4], **kw),
+               lambda **kw: simulate_stream(cfg, x, x[:4], 16, 8, 4, **kw),
+               lambda **kw: lsh_topk_reference(cfg, x, x[:4], 2, **kw),
+               lambda **kw: nearest_neighbors(x, x[:4], 2, **kw),
+               lambda **kw: planted_random(32, 4, d=8, **kw),
+               lambda **kw: dedup_embeddings(x, r=0.3, **kw)):
+        _needs_a_card(fn, lambda: fn(device="cpu"))
