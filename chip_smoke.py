@@ -37,7 +37,9 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                ``dedup_embeddings`` on that sample with its queries,
                dropping rows, equal to the CPU's; Table 1 (the Wiki
                stand-in, 1024 shards, all four schemes); every H, G and
-               Gamma of it through the hash kernel.  It runs last;
+               Gamma of it through the hash kernel.  It runs after
+               the retrieval paths, so that each of them follows the
+               same work as before it was added;
   retrieval -- the retrieval service of ``repro_torch.launch.serve`` with
                gemma-7b at its published width (28 layers, d_model 3072,
                bf16, weights drawn on the card from --seed): embed 2,048
@@ -65,14 +67,37 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                path builds through ``recover_or_build(snapshot_dir=...,
                pipelined=True)`` (boot snapshot + WAL, the async front)
                and ends with a warm restart from that directory, which
-               must answer a served batch with the same gids.
+               must answer a served batch with the same gids;
+  train     -- examples/train_lm_with_dedup_torch.py's flow, last:
+               ``dedup_embeddings`` of its planted embeddings through the
+               hash kernel (the planted duplicates removed), then
+               mamba2-130m at its published width trained by
+               ``launch/train.py``: 8 x 1,024 tokens a step from
+               ``TokenPipeline``, 40 steps, a checkpoint every 10, the
+               example's failure at step 20, and the same run
+               uninterrupted; the two loss trajectories must be bitwise
+               alike (PyTorch's deterministic algorithms on) and the
+               loss must fall.  Each step launches the SSD kernel twice
+               a layer (the forward and its rematerialisation) and the
+               SSD gradient kernel once.  Then the step's ms (CUDA
+               events), tokens/s and peak memory, a traced step, bf16
+               gradients against a float32 step (at 2 blocks of the
+               published width: at 24 the random-init gradient is chaotic
+               in bf16 rounding; that error is printed, also through the
+               CPU's plain versions at two seeds), the card's float32
+               loss and gradients at 24 blocks against the CPU's plain
+               versions on 96 tokens, and the reduced float32 config's
+               loss, gradients and one AdamW step on the card against
+               the CPU.  The SSD kernel is also held against its plain
+               version at one layer's inputs of a training step.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers also count per design, and every
 launch of those two paths must go to their "tensor_core" designs, whose
 SASS must hold tensor-core (HMMA) instructions.  Each kernel is then
 held against its plain PyTorch version on the inputs its path gave it
-and timed with CUDA events; the hash kernel BITWISE, at the first call
+and timed with CUDA events (the SSD gradient kernel also against its own
+second launch, bitwise); the hash kernel BITWISE, at the first call
 of every (phase, kind) of every path, and against the CPU on a sample
 of 65,536 rows.  One serving bucket and one embedding forward are
 traced with torch.profiler, and the script prints one JSON line of
@@ -141,6 +166,24 @@ SAMPLE_WIDE_W, DEDUP_W = 1.2, 2.0
 # name: (d, W, k, r, c) -- benchmarks/paper_common.py:17-25
 SIM_DATASETS = {"random": (100, 0.5, 10, 0.3, 2.0),
                 "wiki": (256, 0.5, 12, 0.1, 2.0)}
+# the train path: examples/train_lm_with_dedup_torch.py's flow with
+# mamba2-130m at its published width (the reference trainer's default
+# arch), 8 x 1,024 tokens a step from TokenPipeline, 40 steps, a
+# checkpoint every 10 and the example's failure half way (step 20)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "mamba2-130m", 8, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TIMED_STEPS = 40, 10, 5
+# bf16 gradients against a float32 step on the same weights and tokens:
+# relative L2 error of each leaf and of the whole gradient (a wrong
+# gradient is off by ~1; bf16 rounds activations at every layer).  At
+# random init the 24-block model's gradient is chaotic in that rounding,
+# through the kernels and through the CPU's plain versions alike (the
+# train path prints both), so the check runs at the published widths
+# cut to GRAD_DEPTH blocks; the 24-block errors are printed, not checked
+GRAD_LEAF_TOL, GRAD_ALL_TOL, GRAD_DEPTH = 0.1, 0.05, 2
+# float32 at 24 blocks: the kernels' gradient within this many times the
+# distance one ulp of every weight moves the CPU's gradient (rounding is
+# amplified alike by both; a fault is off by ~1, thousands of times more)
+F32_CHAOS = 10
 
 
 def check(cond, msg):
@@ -1576,6 +1619,438 @@ def ssd_record(a, kw, launches, by_design, hmma):
         "launches_by_design": by_design, "sass_hmma": hmma}
 
 
+def ssd_train_forward(a):
+    """The SSD kernel against its plain version at the train path's inputs
+    (one layer's x, b, c as the strided views the training forward hands
+    it), at the forward record's tolerance: the train path's part of the
+    ``ssd_scan`` record."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    x, a_log, b, c, dt = (t.detach() for t in a[:5])
+    ms, got = timed(lambda: kssd.ssd_scan_cuda(x, a_log, b, c, dt), REPS)
+    plain_ms, want = timed(lambda: ref.ssd_scan_ref(x, a_log, b, c, dt), 1)
+    check(bool(torch.isfinite(got.float()).all()),
+          "ssd_scan gave a non-finite output at the train path's inputs")
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=BF16_TOL,
+                         atol=BF16_TOL),
+          f"ssd_scan differs from its plain version by {err} at the train "
+          f"path's inputs")
+    print(f"ssd_scan at the train path's inputs: x {tuple(x.shape)} "
+          f"{x.dtype} strides {x.stride()}, B/C {tuple(b.shape)} strides "
+          f"{b.stride()}: {ms:.4f} ms (plain {plain_ms:.2f} ms), max |err| "
+          f"{err:.3g} (tolerance {BF16_TOL})")
+    return {"train_max_abs_err": err, "train_ms": ms,
+            "train_plain_ms": plain_ms}
+
+
+def _replayed(losses, fail_at, every):
+    """The loss trajectory a run with failures at ``fail_at`` records,
+    from an uninterrupted run's: the steps since the last checkpoint run
+    again after each failure."""
+    out, step, fails = [], 0, set(fail_at)
+    while step < len(losses):
+        if step in fails:
+            fails.discard(step)
+            step = step // every * every
+            continue
+        out.append(losses[step])
+        step += 1
+    return out
+
+
+def _grad_errors(got, want):
+    """{leaf path: relative L2 error} of two gradient trees, and that of
+    the whole."""
+    from repro_torch.tree import leaves_with_paths
+    paths, g = leaves_with_paths(got)
+    _, w = leaves_with_paths(want)
+    errs, num, den = {}, 0.0, 0.0
+    for p, a, b in zip(paths, g, w):
+        a, b = a.double(), b.to(a.device).double()
+        d2 = float((a - b).square().sum())
+        n2 = float(b.square().sum())
+        errs[p] = math.sqrt(d2 / max(n2, 1e-30))
+        num, den = num + d2, den + n2
+    return errs, math.sqrt(num / den)
+
+
+def f32_card_vs_cpu(c32, m32, few, l32, g32, full_depth):
+    """float32 at the published width on a short batch: the card's loss
+    and gradients (the SSD kernels) against the CPU's plain versions'
+    (``l32``, ``g32`` of the CPU model ``m32``).  Below full depth, at the
+    CPU tests' tolerance (rtol = atol = 1e-4 a leaf, loss 1e-5).  At full
+    depth float32 rounding alone moves the gradient further than that, so
+    the yardstick is the CPU's own gradient after every weight moves one
+    ulp (a random sign each): the kernels' gradient must be within
+    F32_CHAOS times that distance of the CPU's, and of the card's with
+    the plain SSD versions in place of the kernels (the same card
+    products).  A wrong gradient is off by ~1, far outside it."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import (Transformer, load_param_tree,
+                                    param_tree, value_and_grad)
+    from repro_torch.tree import tree_map
+    depth = c32.n_layers
+    k32 = Transformer(c32, "cuda")
+    load_param_tree(k32, param_tree(m32))
+    card_few = tuple(t.cuda() for t in few)
+    lk, gk = value_and_grad(k32, *card_few)
+    far = {p: float((a.cpu() - b).abs().max())
+           for p, a, b in zip(*_flatten_pair(gk, g32))}
+    errs, whole = _grad_errors(gk, g32)
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(float(lk) - float(l32)) / abs(float(l32))
+    print(f"train float32, {depth} blocks, 1 x {few[0].shape[1]} tokens: "
+          f"loss card {float(lk):.7f} CPU {float(l32):.7f}; gradients "
+          f"relative L2 error over all leaves {whole:.4g} (worst leaf "
+          f"{worst} {errs[worst]:.4g}), max |card - CPU| "
+          f"{max(far.values()):.3g}")
+    check(loss_rel <= 1e-5, f"float32 at {depth} blocks: loss card "
+          f"{float(lk)} vs CPU {float(l32)}")
+    reading = {"loss_card": float(lk), "loss_cpu": float(l32),
+               "rel_l2": whole, "max_abs": max(far.values())}
+    if not full_depth:
+        bad = {p: far[p] for p, a, b in zip(*_flatten_pair(gk, g32))
+               if not torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4)}
+        check(not bad, f"float32 at {depth} blocks: card gradients differ "
+              f"from the CPU's (rtol = atol = 1e-4): {bad}")
+        return reading
+    gen = torch.Generator().manual_seed(1)
+    nudged = Transformer(c32, "cpu")
+    load_param_tree(nudged, tree_map(lambda p: torch.nextafter(
+        p, torch.where(torch.rand(p.shape, generator=gen) < 0.5,
+                       torch.inf, -torch.inf)), param_tree(m32)))
+    _, gn = value_and_grad(nudged, *few)
+    ulp, ulp_whole = _grad_errors(gn, g32)
+    kernels = ops.ssd_scan_cuda, ops.ssd_scan_bwd_cuda
+    ops.ssd_scan_cuda, ops.ssd_scan_bwd_cuda = (ref.ssd_scan_ref,
+                                                ref.ssd_scan_bwd_ref)
+    try:
+        _, gq = value_and_grad(k32, *card_few)
+    finally:
+        ops.ssd_scan_cuda, ops.ssd_scan_bwd_cuda = kernels
+    plain_cpu = _grad_errors(gq, g32)[1]
+    kern_plain, kp_whole = _grad_errors(gk, gq)
+    print(f"train float32, {depth} blocks: the CPU's gradient moved by "
+          f"one ulp of every weight: relative L2 {ulp_whole:.4g} (worst "
+          f"leaf {max(ulp.values()):.4g}); the card with the plain SSD "
+          f"versions against the CPU {plain_cpu:.4g}; the card's kernels "
+          f"against its plain SSD versions {kp_whole:.4g} (worst leaf "
+          f"{max(kern_plain.values()):.4g}); tolerance {F32_CHAOS} x the "
+          f"one-ulp distance, over all leaves")
+    check(whole <= F32_CHAOS * ulp_whole and
+          kp_whole <= F32_CHAOS * ulp_whole,
+          f"float32 at {depth} blocks: the kernels' gradient is further "
+          f"from the plain versions' ({whole}, {kp_whole}) than "
+          f"{F32_CHAOS} x one ulp's reach ({ulp_whole})")
+    reading.update(one_ulp_rel_l2=ulp_whole, card_plain_vs_cpu=plain_cpu,
+                   kernels_vs_card_plain=kp_whole)
+    return reading
+
+
+def train_path(args, captured):
+    """examples/train_lm_with_dedup_torch.py on the card: dedup through the
+    hash kernel, then mamba2-130m at its published width trained through
+    the SSD forward and backward kernels, with an injected failure whose
+    replay must repeat an uninterrupted run bit for bit.  Returns the
+    launch counts, the dedup's HashCalls and the step numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_lm_with_dedup_torch as example
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import lsh_hash as klh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as kssd
+    from repro_torch.launch import train
+    from repro_torch.models import (Transformer, init_params,
+                                    load_param_tree, param_tree,
+                                    value_and_grad)
+
+    # ---- stage 1: dedup through the hash kernel ---------------------------
+    klh.lsh_hash_cuda.launches = 0
+    hcalls = HashCalls().__enter__()
+    hcalls.phase = "dedup"
+    keep = example.dedup_stage("cuda")
+    torch.cuda.synchronize()
+    hcalls.__exit__()
+    removed = int((~keep[example.N_BASE:]).sum())
+    check(keep[:example.N_BASE].all() and removed > 0.9 * example.N_DUPS,
+          f"dedup kept an original or missed planted duplicates: "
+          f"{removed}/{example.N_DUPS} removed")
+    hash_launches = klh.lsh_hash_cuda.launches
+    check(hash_launches > 0 and hash_launches == sum(hcalls.count.values()),
+          f"every hash of the dedup must launch the hash kernel: "
+          f"{hcalls.count}")
+    print(f"phase dedup: {removed}/{example.N_DUPS} planted duplicates "
+          f"removed, {int(keep.sum())}/{len(keep)} kept; hash launches "
+          f"{hcalls.count}")
+
+    # ---- stage 2: training, failure injected, then uninterrupted ----------
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.ssm.d_state, cfg.cdtype) ==
+          (24, 768, 128, torch.bfloat16),
+          "mamba2-130m must train at its published width")
+    ops.ssd_scan_cuda = kssd.ssd_scan_cuda     # the mamba2 path's recorder
+    ops.ssd_scan_bwd_cuda = recorder(captured, "ssd_scan_bwd",
+                                     kssd.ssd_scan_bwd_cuda)
+    runs = {}
+    for name, fail in (("failure at step 20", True),
+                       ("uninterrupted", False)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
+            argv = example.train_argv(
+                TRAIN_ARCH, TRAIN_STEPS, True, ck, device="cuda",
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                ckpt_every=TRAIN_CKPT_EVERY, fail=fail)
+            kssd.reset_launches()
+            held = torch.cuda.memory_allocated()   # by the earlier paths
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            stats = train.main(argv + ["--seed", str(args.seed)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = {"ssd_scan": kssd.ssd_scan_cuda.launches,
+                    "ssd_scan_bwd": kssd.ssd_scan_bwd_cuda.launches}
+        by_design = dict(kssd.ssd_scan_cuda.launches_by_design)
+        runs[name] = (stats, launches)
+        print(f"phase train ({name}): {stats.steps_run} steps, "
+              f"{stats.restarts} restarts, {secs:.1f} s with the token "
+              f"draws and checkpoints; loss {stats.losses[0]:.4f} -> "
+              f"{stats.losses[-1]:.4f}; launches {launches}, forward by "
+              f"design {by_design}; peak device memory "
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} "
+              f"GiB above the {held / 2**30:.2f} GiB held before the run")
+        n = stats.steps_run
+        check(launches["ssd_scan"] == 2 * cfg.n_layers * n,
+              "each step launches the SSD kernel twice a layer (forward "
+              "and the rematerialised forward)")
+        check(launches["ssd_scan_bwd"] == cfg.n_layers * n,
+              "each step launches the SSD gradient kernel once a layer")
+        check(by_design["tensor_core"] == launches["ssd_scan"],
+              f"every training forward must take the tensor-core design: "
+              f"{by_design}")
+        check(all(math.isfinite(v) for v in stats.losses),
+              "non-finite training loss")
+        check(np.mean(stats.losses[-5:]) < np.mean(stats.losses[:5]),
+              "the loss did not fall")
+    (failed, launches), (clean, _) = (runs["failure at step 20"],
+                                      runs["uninterrupted"])
+    want = _replayed(clean.losses, (TRAIN_STEPS // 2,), TRAIN_CKPT_EVERY)
+    check(failed.restarts == 1 and failed.losses == want,
+          "the run with a failure must repeat the uninterrupted run's loss "
+          "trajectory bit for bit")
+    print(f"train: the replayed trajectory equals the uninterrupted one "
+          f"bitwise over {len(want)} losses; losses "
+          f"{[round(v, 4) for v in clean.losses]}")
+
+    # ---- step time, tokens/s, peak memory, where the time goes ------------
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    params = param_tree(model)
+    opt_cfg = optim.AdamWConfig(warmup_steps=10, total_steps=TRAIN_STEPS)
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=args.seed,
+                         device="cuda")
+    draw_ms, batch = timed(lambda: pipe._batch_at(0), 3)
+    step = train.make_step(model, opt_cfg)
+    out = {}
+    with train.deterministic():
+        state = (params, optim.init(params))
+        held = torch.cuda.memory_allocated()   # with the model and state
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, (state, _) = timed(lambda: step(state, batch), TIMED_STEPS)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        tokens_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+        print(f"train step: {step_ms:.2f} ms (CUDA events, mean of "
+              f"{TIMED_STEPS} after one warm-up; forward, backward and "
+              f"AdamW), {tokens_s:.0f} tokens/s, peak device memory "
+              f"{peak:.2f} GiB above the {held / 2**30:.2f} GiB allocated "
+              f"before the steps (the model, its state, the batch and "
+              f"what earlier paths hold); TokenPipeline draw "
+              f"{draw_ms:.2f} ms a "
+              f"batch of {TRAIN_BATCH} x {TRAIN_SEQ + 1} x {cfg.vocab}")
+        rows, _, _ = traced(lambda: step(state, batch), "one training step")
+        part = {"ssd_bwd": 0.0, "ssd_scan": 0.0, "gemm": 0.0, "other": 0.0}
+        for e in rows:
+            key = e.key.lower()
+            name = ("ssd_bwd" if "ssd_bwd" in key else
+                    "ssd_scan" if "ssd_scan" in key else
+                    "gemm" if any(w in key for w in ("gemm", "xmma",
+                                                     "cutlass", "nvjet"))
+                    else "other")
+            part[name] += e.self_device_time_total / 1e3
+        print("train step device ms by part: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in part.items()))
+        out.update(step_ms=step_ms, tokens_s=tokens_s, peak_gib=peak,
+                   draw_ms=draw_ms, parts=part)
+
+        # ---- bf16 gradients against a float32 step ------------------------
+        tokens, labels = batch
+        (seg,) = cfg.segments
+        cut = dataclasses.replace(cfg, segments=(dataclasses.replace(
+            seg, repeat=GRAD_DEPTH),))
+        for depth, c, m16 in ((cfg.n_layers, cfg, model),
+                              (GRAD_DEPTH, cut, init_params(
+                                  cut, generator=torch.Generator(
+                                      device="cuda").manual_seed(args.seed),
+                                  device="cuda"))):
+            loss16, g16 = value_and_grad(m16, tokens, labels)
+            m32 = Transformer(dataclasses.replace(
+                c, param_dtype="float32", compute_dtype="float32"), "cuda")
+            load_param_tree(m32, param_tree(m16))
+            loss32, g32 = value_and_grad(m32, tokens, labels)
+            errs, whole = _grad_errors(g16, g32)
+            worst = max(errs, key=errs.get)
+            print(f"train grads bf16 vs float32 on the card, {depth} "
+                  f"blocks: loss {float(loss16):.6f} vs {float(loss32):.6f};"
+                  f" relative L2 error over all leaves {whole:.4g}, worst "
+                  f"leaf {worst} {errs[worst]:.4g}"
+                  + ("" if depth != GRAD_DEPTH else
+                     f" (tolerance {GRAD_LEAF_TOL} a leaf, {GRAD_ALL_TOL} "
+                     f"over all)"))
+            del m32, g32, g16
+        check(whole <= GRAD_ALL_TOL and errs[worst] <= GRAD_LEAF_TOL,
+              f"bf16 gradients differ from float32 ones: {errs}")
+        # the same comparison through the CPU's plain versions (no kernel):
+        # how the error grows with depth, on the batch's first 96 tokens,
+        # and at full depth again with other weights (seed + 1) on 256
+        # tokens of another row.  At the first two, the card's float32
+        # kernels are held to the CPU's float32 plain versions
+        on_cpu, witness, t0 = {}, {}, time.perf_counter()
+        for depth, seed, row, n in ((GRAD_DEPTH, args.seed, 0, 96),
+                                    (cfg.n_layers, args.seed, 0, 96),
+                                    (cfg.n_layers, args.seed + 1, 1, 256)):
+            c = dataclasses.replace(cfg, segments=(dataclasses.replace(
+                seg, repeat=depth),))
+            m16 = init_params(c, generator=torch.Generator().manual_seed(
+                seed), device="cpu")
+            c32 = dataclasses.replace(c, param_dtype="float32",
+                                      compute_dtype="float32")
+            m32 = Transformer(c32, "cpu")
+            load_param_tree(m32, param_tree(m16))
+            few = (tokens[row:row + 1, :n].cpu(),
+                   labels[row:row + 1, :n].cpu())
+            l32, g32 = value_and_grad(m32, *few)
+            on_cpu[f"{depth} blocks, seed {seed}, {n} tokens"] = \
+                _grad_errors(value_and_grad(m16, *few)[1], g32)[1]
+            if seed == args.seed:
+                witness[depth] = f32_card_vs_cpu(c32, m32, few, l32, g32,
+                                                 depth == cfg.n_layers)
+        print(f"train grads bf16 vs float32 on the CPU's plain versions, "
+              f"relative L2 error over all leaves: {on_cpu} "
+              f"({time.perf_counter() - t0:.1f} s with the card's float32 "
+              f"runs)")
+        out.update(bf16_vs_f32_cpu=on_cpu, f32_card_vs_cpu=witness)
+
+        # ---- the reduced float32 config: the card against the CPU --------
+        rcfg = get_config(TRAIN_ARCH, reduced=True)
+        cpu = init_params(rcfg, generator=torch.Generator().manual_seed(
+            args.seed), device="cpu")
+        card = Transformer(rcfg, "cuda")
+        load_param_tree(card, param_tree(cpu))
+        rpipe = TokenPipeline(rcfg.vocab, 4, 128, seed=args.seed,
+                              device="cpu")
+        rbatch = next(rpipe)
+        lc, gc = value_and_grad(cpu, *rbatch)
+        lg, gg = value_and_grad(card, *(t.cuda() for t in rbatch))
+        errs = {}
+        for p_, a, b in zip(*_flatten_pair(gg, gc)):
+            a = a.cpu()
+            errs[p_] = float((a - b).abs().max())
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-4),
+                  f"reduced {p_}: card gradient differs from the CPU's")
+        check(abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc)),
+              f"reduced loss: card {float(lg)} vs CPU {float(lc)}")
+        rstep = optim.AdamWConfig(warmup_steps=2, total_steps=4)
+        sc = train.make_step(cpu, rstep)((param_tree(cpu), optim.init(
+            param_tree(cpu))), rbatch)[0][0]
+        sg = train.make_step(card, rstep)((param_tree(card), optim.init(
+            param_tree(card))), tuple(t.cuda() for t in rbatch))[0][0]
+        for p_, a, b in zip(*_flatten_pair(sg, sc)):
+            check(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-4),
+                  f"reduced {p_}: the card's step differs from the CPU's")
+        print(f"train reduced float32: loss card {float(lg):.7f} CPU "
+              f"{float(lc):.7f}; gradients max |card - CPU| "
+              f"{max(errs.values()):.3g} (rtol = atol = 1e-4), one AdamW "
+              f"step's parameters within 1e-4")
+    return launches, hash_launches, hcalls, out
+
+
+def _flatten_pair(a, b):
+    from repro_torch.tree import leaves_with_paths
+    pa, va = leaves_with_paths(a)
+    pb, vb = leaves_with_paths(b)
+    check(pa == pb, "trees of different layout")
+    return pa, va, vb
+
+
+def ssd_bwd_record(a, kw, launches):
+    """The SSD gradient kernel against its plain version (the reverse
+    recurrence over stored states) at one layer's inputs of a training
+    step, and against itself: two launches bitwise equal.  No PyTorch call
+    computes it, so there is no library time."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+    a = tuple(t.detach() for t in a)       # saved by autograd: no graph
+    x, a_log, b, c, dt, dy = a
+    ms, got = timed(lambda: kssd.ssd_scan_bwd_cuda(*a), REPS)
+    again = kssd.ssd_scan_bwd_cuda(*a)
+    bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
+    check(bitwise, "two launches of ssd_scan_bwd differ")
+    plain_ms, want = timed(lambda: ref.ssd_scan_bwd_ref(*a), 1)
+    # each output within a tolerance of its own largest magnitude (a
+    # training step's gradients are small): the bf16 outputs 1e-2 (one
+    # bf16 step is 2**-8 of a value), the float32 ddt and da_log 1e-3
+    # (sums of bf16 inputs' products in another order)
+    errs, rel = {}, {}
+    for name, g, w in zip(("dx", "db", "dc", "ddt", "da_log"), got, want):
+        check(bool(torch.isfinite(g.float()).all()),
+              f"ssd_scan_bwd {name} is not finite")
+        g, w = g.float(), w.float()
+        errs[name] = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        rel[name] = errs[name] / max(scale, 1e-30)
+        tol = 1e-2 if name in ("dx", "db", "dc") else 1e-3
+        check(torch.allclose(g, w, rtol=tol, atol=tol * scale),
+              f"ssd_scan_bwd {name} differs from its plain version by "
+              f"{errs[name]} (largest |value| {scale})")
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    es = x.element_size()
+    nbytes = (3 * B * S * H * P * es + 4 * B * S * G * N * es
+              + 2 * B * S * H * 4 + 2 * H * 4)
+    # a chunked backward at the forward kernel's chunk: the transposed
+    # product of each of the forward's four, twice the forward's count
+    Q = kssd.CHUNK
+    flops = 2.0 * B * H * (4 * S * N * P + S * (Q + 1) * (N + P))
+    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    p = kssd.bwd_plan(B, S, H, P, N)
+    print(f"ssd_scan_bwd: x {tuple(x.shape)} {x.dtype}, B/C "
+          f"{tuple(b.shape)}, {p.blocks} state blocks, workspace "
+          f"{p.work_floats * 4 / 1e6:.0f} MB: {ms:.4f} ms (plain "
+          f"{plain_ms:.1f} ms, bound {bound:.4f} ms: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP), max |err| {errs}, over the largest "
+          f"|value| {rel}, two launches bitwise equal")
+    return {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ref.py:79",
+        "replaces_note": "no Pallas counterpart: the reference "
+                         "differentiates ssd_scan_ref with JAX autodiff",
+        "launches": launches, "max_abs_err": max(errs.values()),
+        "max_abs_err_by_output": errs, "max_rel_err_by_output": rel,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "library": "none, no PyTorch call computes it",
+        "bitwise_repeat": bitwise, "workspace_bytes": p.work_floats * 4}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1584,6 +2059,10 @@ def main() -> int:
                          "index path")
     args = ap.parse_args()
 
+    # the train path's deterministic cuBLAS workspace: PyTorch reads it
+    # once, at the first cuBLAS call, which an earlier path makes
+    # (repro_torch.launch.train.CUBLAS_WORKSPACE_CONFIG)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1672,13 +2151,24 @@ def main() -> int:
     hash_shapes += [dict(r, path="simulate")
                     for r in hash_records(hcalls, None, None)]
     del oracle, hcalls
+    torch.cuda.empty_cache()
+
+    launches, hash_launches["train"], hcalls, _ = train_path(args, captured)
+    hash_shapes += [dict(r, path="train")
+                    for r in hash_records(hcalls, None, None)]
+    del hcalls
+    bwd_args = captured.pop("ssd_scan_bwd")
+    records["ssd_scan"]["train_launches"] = launches["ssd_scan"]
+    records["ssd_scan"].update(ssd_train_forward(bwd_args[0]))
+    records["ssd_scan_bwd"] = ssd_bwd_record(*bwd_args,
+                                             launches["ssd_scan_bwd"])
     print(f"total {time.perf_counter() - t_start:.0f} s")
     records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
                                           own_launches)
 
     print(card)
     order = ("bucket_search", "bucket_gather", "flash_attention", "ssd_scan",
-             "lsh_hash")
+             "ssd_scan_bwd", "lsh_hash")
     print(json.dumps({"kernels": [records[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name, "count": count}}))

@@ -11,10 +11,9 @@ rename, then ``LATEST`` is replaced.  The format is the JAX reference's
 byte for byte in its structure, so each side's ``load`` reads the
 other's files:
 
-  * a tree is dicts (keys in sorted order), lists and tuples of tensors,
-    numpy arrays or Python scalars; ``None`` is an empty subtree;
-  * a leaf's path is its keys as jax prints key paths, joined by "/":
-    ``['rows_x']`` for a dict key, ``[0]`` for a sequence index;
+  * a tree and its leaves' paths are ``repro_torch.tree``'s (jax's
+    order and key paths); its leaves are tensors, numpy arrays or Python
+    scalars;
   * bfloat16 and float8_e4m3fn leaves (no numpy dtype) are stored as
     same-width integer views (uint16, uint8) and the manifest records the
     logical dtype.  ``load`` returns them as torch tensors of that dtype;
@@ -35,47 +34,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import leaves_with_paths, unflatten
+
 # dtypes numpy can't hold: stored as a same-width integer view
 _VIEW_DTYPES = {"bfloat16": (np.uint16, torch.int16, torch.bfloat16),
                 "float8_e4m3fn": (np.uint8, torch.uint8,
                                   torch.float8_e4m3fn)}
 _TORCH_VIEW = {v[2]: k for k, v in _VIEW_DTYPES.items()}
-
-
-def _flatten_with_paths(tree, prefix=()):
-    """(paths, leaves) in jax's order: dict keys sorted, sequences in
-    order, ``None`` holding no leaf."""
-    if tree is None:
-        return [], []
-    if isinstance(tree, dict):
-        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
-    else:
-        return ["/".join(prefix)], [tree]
-    paths, vals = [], []
-    for name, sub in items:
-        p, v = _flatten_with_paths(sub, prefix + (name,))
-        paths += p
-        vals += v
-    return paths, vals
-
-
-def _unflatten(tree, vals):
-    """``tree``'s structure with its leaves replaced by ``vals`` (in
-    ``_flatten_with_paths`` order)."""
-    it = iter(vals)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(tree)
 
 
 def _storable(v) -> tuple[np.ndarray, str]:
@@ -95,7 +60,7 @@ def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
          nshards: int = 4) -> str:
     """Atomic checkpoint write; returns the final step directory."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    paths, vals = _flatten_with_paths(tree)
+    paths, vals = leaves_with_paths(tree)
     stored = [_storable(v) for v in vals]
 
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_step_{step}_")
@@ -169,7 +134,7 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None
     template leaf's dtype (and, for a tensor, its device).  Returns
     (tree, step, extra)."""
     by_path, step, extra = load(ckpt_dir, step=step)
-    paths, cur_vals = _flatten_with_paths(tree_like)
+    paths, cur_vals = leaves_with_paths(tree_like)
     out_vals = []
     for p, cur in zip(paths, cur_vals):
         if p not in by_path:
@@ -186,7 +151,7 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None
             if isinstance(v, torch.Tensor):
                 v = v.float().numpy()
             out_vals.append(np.asarray(v).astype(np.asarray(cur).dtype))
-    return _unflatten(tree_like, out_vals), step, extra
+    return unflatten(tree_like, out_vals), step, extra
 
 
 def prune_old(ckpt_dir: str, keep: int = 3):

@@ -9,7 +9,10 @@ pass its ``stacked_params`` fields and ``stacked_keys`` as numpy arrays
 
 Model weights carry across the same way (``model_params_from_arrays``):
 the port draws its own with a ``torch.Generator``, which does not give
-jax.random's numbers.
+jax.random's numbers.  Training state goes both ways: the reference's
+``OptState`` into the port (``opt_state_from_arrays``), and the port's
+parameters or gradients back to the reference's tree as numpy
+(``model_arrays``), so that tests compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -17,8 +20,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.hashing import StackedHashParams
-from repro_torch.models.config import BlockKind, ModelConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.core.index import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import (Transformer, load_param_tree,
+                                            param_tree)
+from repro_torch.optim import OptState
+from repro_torch.tree import tree_map
 
 FIELDS = ("A", "b", "alpha", "beta", "alpha_cauchy", "pack_mult", "pack_add")
 
@@ -65,37 +72,32 @@ def model_params_from_arrays(tree: dict, cfg: ModelConfig, device=None
     ``norm_mix``, ``attn``, ``norm_mlp`` and ``mlp``; an SSM block
     ``norm_mix`` and ``ssm`` (``w_in``, ``conv/{w, b}``, ``a_log``,
     ``dt_bias``, ``d_skip``, ``norm_scale``, ``w_out``) and no MLP.
+    Leaves go through float32 and round to each parameter's dtype.
     ``device`` is ``cuda`` unless given."""
     model = Transformer(cfg, device)
-
-    def put(dst: torch.Tensor, a) -> None:
-        a = np.asarray(a)
-        if tuple(a.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {a.shape} != {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(a.astype(np.float32)))
-
-    put(model.embed_table, tree["embed"]["table"])
-    put(model.final_norm.scale, tree["final_norm"]["scale"])
-    if model.lm_head is not None:
-        put(model.lm_head, tree["lm_head"])
-    for seg, blocks, stacked in zip(cfg.segments, model.segments,
-                                    tree["segments"]):
-        unit = len(seg.kinds)
-        for r in range(seg.repeat):
-            for j in range(unit):
-                p, b = stacked[f"b{j}"], blocks[r * unit + j]
-                put(b.norm_mix.scale, p["norm_mix"]["scale"][r])
-                if seg.kinds[j] == BlockKind.SSM:
-                    s = p["ssm"]
-                    for w in ("w_in", "a_log", "dt_bias", "d_skip",
-                              "norm_scale", "w_out"):
-                        put(getattr(b.ssm, w), s[w][r])
-                    put(b.ssm.conv.w, s["conv"]["w"][r])
-                    put(b.ssm.conv.b, s["conv"]["b"][r])
-                    continue
-                put(b.norm_mlp.scale, p["norm_mlp"]["scale"][r])
-                for w in ("wq", "wk", "wv", "wo"):
-                    put(getattr(b.attn, w), p["attn"][w][r])
-                for w in ("w_gate", "w_up", "w_down"):
-                    put(getattr(b.mlp, w), p["mlp"][w][r])
+    load_param_tree(model, _tensors(tree))
     return model
+
+
+def model_arrays(model: Transformer, values: dict | None = None) -> dict:
+    """The model's parameters -- or ``values``, {parameter name: tensor},
+    e.g. their gradients -- as the reference's pytree of float32 numpy
+    arrays (``param_tree``'s layout: segments stacked over repeats)."""
+    return tree_map(lambda t: t.float().cpu().numpy(),
+                    param_tree(model, values))
+
+
+def opt_state_from_arrays(state, device=None) -> OptState:
+    """The reference's ``OptState`` as numpy (mu, nu: trees of float32;
+    step: int32) -> the port's, on ``device`` (``cuda`` unless given)."""
+    device = resolve_device(device)
+    mu, nu, step = state
+    return OptState(mu=_tensors(mu, device), nu=_tensors(nu, device),
+                    step=torch.as_tensor(np.asarray(step, np.int32),
+                                         device=device))
+
+
+def _tensors(tree, device="cpu"):
+    """A tree of numpy arrays -> float32 tensors on ``device``."""
+    return tree_map(lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32)).to(device), tree)

@@ -221,6 +221,27 @@ def normal(key: torch.Tensor, shape) -> torch.Tensor:
     return _SQRT2 * erfinv(u)
 
 
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape, start: int = 0,
+           count: int | None = None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32 (its default "low"
+    mode, ``-log(-log(u))`` of a uniform on [tiny, 1)), flattened: the
+    draws at counters ``start .. start + count - 1`` of the row-major
+    shape, so a large draw can be made a slice at a time.  Both logs are
+    XLA-CPU's float32 ``log`` (``_log_f32``), so the draws are jax's bit
+    for bit on the CPU and on the card."""
+    n = math.prod(tuple(shape))
+    count = n - start if count is None else count
+    idx = torch.arange(start, start + count, dtype=torch.int64,
+                       device=key.device)
+    b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & M32)
+    lo = _const(_TINY, key.device)
+    u = torch.maximum(lo, _fma(_bits_to_unit(b1 ^ b2), 1.0 - lo, lo))
+    return -_log_f32(-_log_f32(u))
+
+
 def randint(key: torch.Tensor, shape, minval: int,
             maxval: int) -> torch.Tensor:
     """``jax.random.randint(..., dtype=int32)`` (bitwise), for

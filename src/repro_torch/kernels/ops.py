@@ -1,5 +1,5 @@
 """Dispatch around the kernels: the per-shard bucket scan, attention, the
-SSD scan and the p-stable hash.
+SSD scan (with its gradient) and the p-stable hash.
 
 ``bucket_search`` takes the typed ``QueryBatch``/``StoreView`` surface
 (keyword-only, every tensor with a leading shard axis) and dispatches on
@@ -25,7 +25,7 @@ from repro_torch.kernels.bucket_search import (bucket_gather_cuda,
                                                bucket_search_cuda)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.types import QueryBatch, StoreView
 
 _M32 = 0xFFFFFFFF
@@ -176,12 +176,41 @@ def bucket_search(*, query: QueryBatch, store: StoreView, cr2: float,
     return bucket_search_cuda(query=query, store=store, cr2=cr2, L=L, K=k)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """(B, H, Sq, dh) x (B, Hkv, Sk, dh) -> (B, H, Sq, dh): the flash
     kernel on CUDA tensors, its plain version on CPU tensors.  The
     reference pads Sq and Sk to its 128-row tiles here; the kernel takes
-    any length, so nothing is padded."""
+    any length, so nothing is padded.  There is no backward kernel yet:
+    with a gradient required it raises rather than hand back an output
+    that autograd cannot differentiate."""
+    if _needs_grad(q, k, v):
+        raise NotImplementedError(
+            "flash_attention has no backward kernel yet: dense-family "
+            "training (the counterpart of flash_xla.py's custom VJP) is "
+            "ROADMAP Queue 1 item 12")
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan with its gradient: ``ssd_scan_cuda`` forward and
+    ``ssd_scan_bwd_cuda`` backward (the kernels on CUDA tensors, both
+    plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, x, a_log, b, c, dt):
+        ctx.save_for_backward(x, a_log, b, c, dt)
+        return ssd_scan_cuda(x, a_log, b, c, dt)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a_log, b, c, dt = ctx.saved_tensors
+        dx, db, dc, ddt, da_log = ssd_scan_bwd_cuda(x, a_log, b, c, dt,
+                                                    dy.to(x.dtype))
+        return dx, da_log, db, dc, ddt
 
 
 def ssd_scan(x, a_log, b, c, dt):
@@ -189,7 +218,11 @@ def ssd_scan(x, a_log, b, c, dt):
     a_log (H,) -> y (B, S, H, P): the kernel on CUDA tensors, its plain
     version on CPU tensors.  The reference repeats B and C to every head
     and pads S to its 128-step chunks here; the kernel reads each head's
-    group and masks the last chunk, so nothing is copied."""
+    group and masks the last chunk, so nothing is copied.  With a gradient
+    required it runs as an autograd function whose backward is the
+    gradient kernel (its plain version on the CPU)."""
+    if _needs_grad(x, a_log, b, c, dt):
+        return _SSDScan.apply(x, a_log, b, c, dt)
     return ssd_scan_cuda(x, a_log, b, c, dt)
 
 

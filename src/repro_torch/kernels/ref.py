@@ -7,7 +7,9 @@ point axis in chunks and the gather walks span offsets, each carrying a
 running top-K, so both also run at the full store size on the card (the
 unchunked (R, L, N) match tensor would need gigabytes per shard).  The
 SSD scan's plain version is the reference's sequential recurrence, the
-function the chunked kernel computes in another order of rounding.
+function the chunked kernel computes in another order of rounding; its
+gradient's plain version is the reverse recurrence over the stored
+states.
 
 Top-K selection is exact in (dist^2, gid) lex order: a non-negative
 float32 orders like its bit pattern, so ``bits(d2) << 32 | gid`` is one
@@ -201,6 +203,59 @@ def ssd_scan_ref(x, a_log, b, c, dt):
     if not ys:
         return torch.empty_like(x)
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def ssd_scan_bwd_ref(x, a_log, b, c, dt, dy):
+    """Gradients of ``ssd_scan_ref`` (plain version of
+    ``ssd_scan_bwd_cuda``): the forward states step by step, then the
+    reverse recurrence, in float32, with a = -exp(a_log):
+        dh_t  = dy_t c_t^T + exp(a dt_{t+1}) dh_{t+1}
+        dx_t  = dt_t dh_t b_t
+        db_t  = dt_t dh_t^T x_t,  dc_t = h_t^T dy_t   (summed over the
+                                                      heads of a group)
+        ddt_t = x_t . (dh_t b_t) + a exp(a dt_t) <dh_t, h_{t-1}>
+        da_log = a sum_{batch, t} dt_t exp(a dt_t) <dh_t, h_{t-1}>
+    Returns (dx, db, dc, ddt, da_log): dx, db, dc in x's dtype, ddt and
+    da_log float32.  Keeps all S states: (B, H, P, N) floats a step."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep = H // G
+    a = -torch.exp(a_log.float())
+    dtf = dt.float()
+    decay = torch.exp(a * dtf)                            # (B, S, H)
+    xf, dyf = x.float(), dy.float()
+    bq = b.float().repeat_interleave(rep, dim=2)          # (B, S, H, N)
+    cq = c.float().repeat_interleave(rep, dim=2)
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    states = []
+    for t in range(S):
+        xdt = xf[:, t] * dtf[:, t, :, None]
+        state = (state * decay[:, t, :, None, None]
+                 + xdt[..., :, None] * bq[:, t, :, None, :])
+        states.append(state)
+    dx = torch.zeros((B, S, H, P), dtype=torch.float32, device=x.device)
+    dbh = torch.zeros((B, S, H, N), dtype=torch.float32, device=x.device)
+    dch = torch.zeros_like(dbh)
+    ddt = torch.zeros((B, S, H), dtype=torch.float32, device=x.device)
+    dlam = torch.zeros((B, H), dtype=torch.float32, device=x.device)
+    dh = torch.zeros_like(state)
+    for t in reversed(range(S)):
+        if t + 1 < S:
+            dh = dh * decay[:, t + 1, :, None, None]
+        dh = dh + dyf[:, t, :, :, None] * cq[:, t, :, None, :]
+        u = torch.einsum("bhpn,bhn->bhp", dh, bq[:, t])
+        dx[:, t] = dtf[:, t, :, None] * u
+        dbh[:, t] = dtf[:, t, :, None] * torch.einsum("bhpn,bhp->bhn", dh,
+                                                      xf[:, t])
+        dch[:, t] = torch.einsum("bhpn,bhp->bhn", states[t], dyf[:, t])
+        g = ((dh * states[t - 1]).sum(dim=(-2, -1)) if t > 0
+             else torch.zeros_like(dlam))
+        ddt[:, t] = (xf[:, t] * u).sum(-1) + a * decay[:, t] * g
+        dlam = dlam + dtf[:, t] * decay[:, t] * g
+    db = dbh.view(B, S, G, rep, N).sum(3)
+    dc = dch.view(B, S, G, rep, N).sum(3)
+    return (dx.to(x.dtype), db.to(b.dtype), dc.to(c.dtype), ddt,
+            a * dlam.sum(0))
 
 
 def tree_project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

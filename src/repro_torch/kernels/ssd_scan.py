@@ -9,6 +9,11 @@ alignment before the launch: "tensor_core" (bf16 on ``mma.sync``) or
 ``launches`` and, per design, in ``launches_by_design``.  Nothing is
 padded or repeated: the kernels mask a ragged last chunk themselves and
 read B and C at each head's group through their strides.
+
+``ssd_scan_bwd_cuda`` is the scan's gradient: ``csrc/ssd_scan_bwd.cu``, the
+port's own kernel (the reference differentiates its plain scan), on CUDA
+tensors, ``ref.ssd_scan_bwd_ref`` on CPU tensors; ``bwd_plan`` mirrors its
+shared memory and workspace, and it counts its calls in ``launches``.
 """
 from __future__ import annotations
 
@@ -160,11 +165,112 @@ def ssd_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     return y
 
 
+# ---------------------------------------------------------------------------
+# The gradient: csrc/ssd_scan_bwd.cu
+# ---------------------------------------------------------------------------
+
+BWD_CHUNK = 32         # steps a staged chunk (boundary states between)
+BWD_COLS = 32          # state columns a block
+BWD_THREADS = 256
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.ssd_scan_bwd_launch.argtypes = (
+            [_P] * 12 + [_I] * 7 + [_LL] * 19 + [_P])
+        lib.ssd_scan_bwd_launch.restype = _I
+        lib.ssd_scan_bwd_smem_bytes.argtypes = [_I]
+        lib.ssd_scan_bwd_smem_bytes.restype = _LL
+        lib.ssd_scan_bwd_work_floats.argtypes = [_I] * 5
+        lib.ssd_scan_bwd_work_floats.restype = _LL
+        lib._typed = True
+    return lib
+
+
+class BwdPlan(NamedTuple):
+    """How one gradient call runs, as ``csrc/ssd_scan_bwd.cu`` sizes it."""
+    rows: int          # head width padded to 16, 32, 64 or 128
+    sub: int           # steps whose states a thread holds in registers
+    blocks: int        # state blocks: (batch, head, slice of 32 columns)
+    smem_bytes: int    # dynamic shared memory of a state block
+    work_floats: int   # float32 workspace the wrapper allocates
+
+
+def bwd_plan(B: int, S: int, H: int, P: int, N: int) -> BwdPlan:
+    """The sizing of a gradient call; raises ValueError past P = 128."""
+    _need(0 < P <= MAX_P, f"head width {P} must be in [1, {MAX_P}]")
+    _need(N > 0 and S > 0, f"S={S} and N={N} must be positive")
+    pp = next(w for w in (16, 32, 64, 128) if P <= w)
+    sub = 8 if pp <= 64 else 4
+    ns = -(-N // BWD_COLS)
+    q, cols, warps = BWD_CHUNK, BWD_COLS, BWD_THREADS // 32
+    smem = 4 * (2 * q * pp + 2 * q * cols + q + 2 * sub * warps * cols
+                + sub * pp + sub * warps)
+    nck = -(-S // q)
+    work = (B * H * ns * nck * pp * cols + B * S * H * ns * P
+            + B * S * H * ns + 2 * B * S * H * N + B * S * H)
+    return BwdPlan(pp, sub, B * H * ns, smem, work)
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, dt: torch.Tensor, dy: torch.Tensor):
+    """Gradient of ``ssd_scan_cuda`` at (x, a_log, b, c, dt) for the output
+    gradient dy (B, S, H, P) in x's dtype: returns (dx, db, dc, ddt,
+    da_log), dx, db and dc in x's dtype, ddt (B, S, H) and da_log (H,)
+    float32.  The kernel on CUDA tensors (deterministic: no atomics, every
+    sum in a fixed order), ``ref.ssd_scan_bwd_ref`` on CPU tensors.  Any
+    S."""
+    _need(x.dim() == 4 and b.dim() == 4 and c.shape == b.shape,
+          "x must be (B, S, H, P) and b, c (B, S, G, N)")
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    _need(b.shape[:2] == (B, S) and G > 0 and H % G == 0,
+          f"b/c {tuple(b.shape)} do not fit x {tuple(x.shape)}")
+    _need(dt.shape == (B, S, H) and a_log.shape == (H,),
+          f"dt must be {(B, S, H)} and a_log ({H},)")
+    _need(dy.shape == x.shape, f"dy {tuple(dy.shape)} must be x's shape")
+    _need(dt.dtype == torch.float32 and a_log.dtype == torch.float32,
+          "dt and a_log must be float32")
+    _need(x.dtype == b.dtype == c.dtype == dy.dtype and x.dtype in _DTYPES,
+          f"x, b, c, dy must share float32 or bfloat16, got {x.dtype}, "
+          f"{b.dtype}, {c.dtype}, {dy.dtype}")
+    if not x.is_cuda:
+        return ref.ssd_scan_bwd_ref(x, a_log, b, c, dt, dy)
+    _need(all(t.device == x.device for t in (a_log, b, c, dt, dy)),
+          "x, a_log, b, c, dt, dy must be on one CUDA device")
+    dev = x.device
+    dx = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
+    db = torch.empty((B, S, G, N), dtype=x.dtype, device=dev)
+    dc = torch.empty((B, S, G, N), dtype=x.dtype, device=dev)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    da_log = torch.empty((H,), dtype=torch.float32, device=dev)
+    if S == 0 or B == 0:
+        return dx, db.zero_(), dc.zero_(), ddt, da_log.zero_()
+    p = bwd_plan(B, S, H, P, N)
+    work = torch.empty((p.work_floats,), dtype=torch.float32, device=dev)
+    a_log = a_log.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd_lib().ssd_scan_bwd_launch(
+        x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
+        a_log.data_ptr(), dy.data_ptr(), dx.data_ptr(), db.data_ptr(),
+        dc.data_ptr(), ddt.data_ptr(), da_log.data_ptr(), work.data_ptr(),
+        _DTYPES[x.dtype], B, S, H, G, P, N, *x.stride(), *b.stride(),
+        *c.stride(), *dt.stride(), *dy.stride(), stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
+    ssd_scan_bwd_cuda.launches += 1
+    return dx, db, dc, ddt, da_log
+
+
 def reset_launches() -> None:
-    """Set the launch counts, total and per design, to 0."""
+    """Set the launch counts, total and per design, to 0 (the gradient's
+    too)."""
     ssd_scan_cuda.launches = 0
     ssd_scan_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
+    ssd_scan_bwd_cuda.launches = 0
 
 
 ssd_scan_cuda.launches = 0
 ssd_scan_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
+ssd_scan_bwd_cuda.launches = 0

@@ -1,5 +1,6 @@
 """Shared model layers: init, RMSNorm, RoPE, the gated MLP, embeddings,
-the causal depthwise conv of the Mamba-2 block.
+the cross entropy of training, the causal depthwise conv of the Mamba-2
+block.
 
 Plain functions on tensors, and ``nn.Module``s that hold the parameters
 and call them.  Weights keep the reference's layout, (d_in, d_out) used
@@ -30,7 +31,8 @@ def he_init_(w: torch.Tensor, generator: torch.Generator,
 
 
 def param(*shape, dtype, device) -> nn.Parameter:
-    """An uninitialised parameter (the port serves: no gradients)."""
+    """An uninitialised parameter, frozen: the serving paths take no
+    gradients, and the trainer turns them on (``requires_grad_``)."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
@@ -123,6 +125,22 @@ def unembed(head: torch.Tensor, x: torch.Tensor, softcap: float = 0.0):
     if softcap > 0:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over all positions, in the reference's
+    arithmetic (float32): the row max shifted out without a gradient, and
+    the label logit taken by a masked sum over the vocab axis rather than
+    a gather.  Padded vocab columns come in masked at -1e30 (``_lm_head``)
+    and so add nothing."""
+    lf = logits.float()
+    m = torch.amax(lf, dim=-1, keepdim=True).detach()
+    shifted = lf - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1))
+    vocab_ids = torch.arange(lf.shape[-1], device=lf.device)
+    label_logit = torch.sum(
+        torch.where(vocab_ids == labels[..., None], shifted, 0.0), dim=-1)
+    return torch.mean(lse - label_logit)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@ out-proj.
 
 The full-sequence form: the scan is ``kernels/ops.ssd_scan``, the
 hand-written chunked kernel on the card and the sequential plain version
-on the CPU.  The decode path with its carried (conv, ssm) state
+on the CPU.  The block is differentiable end to end: the scan's gradient
+is the gradient kernel (``ops.ssd_scan``'s autograd function), and the
+conv (float32 shifted sums), softplus and the gated RMSNorm are plain
+PyTorch.  The decode path with its carried (conv, ssm) state
 (``_ssd_recurrent`` and ``init_ssm_state`` of the reference) waits for
 the decode and cache part of the port (ROADMAP Queue 1 item 11.3).
 """

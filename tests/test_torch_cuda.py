@@ -670,6 +670,169 @@ def test_ssd_kernel_rejects_bad_inputs():
 
 
 # ---------------------------------------------------------------------------
+# The SSD gradient: kernel against the plain reverse recurrence
+# ---------------------------------------------------------------------------
+
+def _ssd_grads_close(got, want):
+    """dx, db, dc, ddt, da_log: float32 within rtol 1e-4 and an atol of
+    1e-4 of the output's largest magnitude (ddt and da_log are sums of
+    terms that cancel; the kernel adds them in another order); bf16 dx,
+    db, dc within the forward's bf16 tolerance, 0.05 (an output rounded to
+    bf16 lands one bf16 step apart), ddt and da_log (float32 sums of bf16
+    inputs) within 1e-3 of the largest magnitude."""
+    bf16 = got[0].dtype == torch.bfloat16
+    for name, g, w in zip(("dx", "db", "dc", "ddt", "da_log"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        g, w = g.float().cpu(), w.float().cpu()
+        scale = max(1.0, float(w.abs().max()))
+        if bf16 and name in ("dx", "db", "dc"):
+            tol = dict(rtol=0.05, atol=0.05)
+        else:
+            rel = 1e-3 if bf16 else 1e-4
+            tol = dict(rtol=rel, atol=rel * scale)
+        np.testing.assert_allclose(g, w, err_msg=name, **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (8, 1024, 24, 1, 64, 128),    # mamba2-130m's training step
+    (2, 77, 4, 2, 32, 16),        # odd S, two groups
+    (1, 33, 2, 2, 16, 40),        # P = 16, N off the 32-column slices
+    (1, 50, 2, 1, 100, 64),       # P padded to 128
+])
+def test_ssd_bwd_kernel_matches_plain_version(dtype, shape):
+    dev = _cuda()
+    B, S, H, G, P, N = shape
+    args = _ssd(S + P, B, S, H, G, P, N, dtype, dev, mamba_decay=H > 4)
+    dy = (torch.randn((B, S, H, P), generator=torch.Generator()
+                      .manual_seed(S)) * 0.5).to(dev, dtype)
+    want = ref.ssd_scan_bwd_ref(*args, dy)
+    before = kssd.ssd_scan_bwd_cuda.launches
+    got = kssd.ssd_scan_bwd_cuda(*args, dy)
+    torch.cuda.synchronize()
+    assert kssd.ssd_scan_bwd_cuda.launches == before + 1
+    _ssd_grads_close(got, want)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_kernel_launches_are_bitwise_equal():
+    """No atomics: two launches on the same inputs give the same bits."""
+    dev = _cuda()
+    args = _ssd(7, 2, 300, 8, 2, 64, 128, torch.bfloat16, dev, True)
+    x, a_log, b, c, dt = args
+    # x, b and c as the SSM block passes them: strided views
+    xbc = torch.cat([x.flatten(2), b.flatten(2), c.flatten(2)], dim=-1)
+    x, b, c = torch.split(xbc, [x[0, 0].numel(), b[0, 0].numel(),
+                                c[0, 0].numel()], dim=-1)
+    x, b, c = (x.view(args[0].shape), b.view(args[2].shape),
+               c.view(args[3].shape))
+    dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)
+                     ).to(dev, torch.bfloat16)
+    one = kssd.ssd_scan_bwd_cuda(x, a_log, b, c, dt, dy)
+    two = kssd.ssd_scan_bwd_cuda(x, a_log, b, c, dt, dy)
+    for g1, g2 in zip(one, two):
+        assert torch.equal(g1, g2)
+    _ssd_grads_close(one, ref.ssd_scan_bwd_ref(x, a_log, b, c, dt, dy))
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_plan_mirrors_the_kernel():
+    _cuda()
+    lib = kssd._bwd_lib()
+    for P in range(1, kssd.MAX_P + 1):
+        for B, S, H, N in ((1, 1, 1, 1), (8, 1024, 24, 128), (2, 77, 4, 40)):
+            p = kssd.bwd_plan(B, S, H, P, N)
+            assert lib.ssd_scan_bwd_smem_bytes(P) == p.smem_bytes
+            assert lib.ssd_scan_bwd_work_floats(B, S, H, P, N) == \
+                p.work_floats
+
+
+@pytest.mark.gpu
+def test_ssd_scan_op_gradient_is_the_kernels():
+    """``ops.ssd_scan`` under autograd launches the forward kernel and, in
+    backward, the gradient kernel: its gradients are the kernel's bits."""
+    dev = _cuda()
+    args = _ssd(11, 2, 200, 4, 1, 64, 128, torch.bfloat16, dev, True)
+    leaves = [t.clone().requires_grad_() for t in args]
+    dy = torch.randn(args[0].shape, generator=torch.Generator()
+                     .manual_seed(2)).to(dev, torch.bfloat16)
+    before = (kssd.ssd_scan_cuda.launches, kssd.ssd_scan_bwd_cuda.launches)
+    y = ops.ssd_scan(*leaves)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (kssd.ssd_scan_cuda.launches,
+            kssd.ssd_scan_bwd_cuda.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    dx, db, dc, ddt, da_log = kssd.ssd_scan_bwd_cuda(*args, dy)
+    x, a_log, b, c, dt = leaves
+    for got, want in ((x.grad, dx), (b.grad, db), (c.grad, dc),
+                      (dt.grad, ddt), (a_log.grad, da_log)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_reduced_training_step_on_the_card_equals_the_cpu():
+    """Reduced mamba2 (float32): the loss and every gradient leaf on the
+    card (the SSD forward and gradient kernels) against the CPU (their
+    plain versions) at the CPU tests' tolerances (loss rtol 1e-5,
+    gradients rtol = atol = 1e-4), then one AdamW step's parameters;
+    two card steps bitwise alike."""
+    dev = _cuda()
+    from repro_torch import optim
+    from repro_torch.tree import leaves_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import (Transformer, init_params,
+                                    load_param_tree, param_tree,
+                                    value_and_grad)
+    cfg = get_config("mamba2-130m", reduced=True)
+    cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    card = Transformer(cfg, dev)
+    load_param_tree(card, param_tree(cpu))
+    tokens, labels = next(TokenPipeline(cfg.vocab, 2, 100, seed=1,
+                                        device="cpu"))
+    before = (kssd.ssd_scan_cuda.launches, kssd.ssd_scan_bwd_cuda.launches)
+    with train.deterministic():
+        lg, gg = value_and_grad(card, tokens.to(dev), labels.to(dev))
+        torch.cuda.synchronize()
+        assert (kssd.ssd_scan_cuda.launches - before[0],
+                kssd.ssd_scan_bwd_cuda.launches - before[1]) == (
+            2 * cfg.n_layers, cfg.n_layers)
+        lc, gc = value_and_grad(cpu, tokens, labels)
+        np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+        for (p, a), b in zip(zip(*leaves_with_paths(gg)),
+                             leaves_with_paths(gc)[1]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=p)
+        opt = optim.AdamWConfig(warmup_steps=2, total_steps=4)
+        state = lambda m: (param_tree(m), optim.init(param_tree(m)))
+        on_card = [train.make_step(card, opt)(state(card), (
+            tokens.to(dev), labels.to(dev)))[0][0] for _ in range(2)]
+        on_cpu = train.make_step(cpu, opt)(state(cpu), (tokens, labels))[0][0]
+    for a, b, c in zip(leaves_with_paths(on_card[0])[1],
+                       leaves_with_paths(on_card[1])[1],
+                       leaves_with_paths(on_cpu)[1]):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_attention_refuses_a_gradient_on_the_card():
+    dev = _cuda()
+    q = torch.randn((1, 2, 8, 16), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ops.flash_attention(q, q, q)
+    with torch.no_grad():
+        assert ops.flash_attention(q, q, q).shape == q.shape
+
+
+# ---------------------------------------------------------------------------
 # p-stable hash: BITWISE kernel = plain version on the card = CPU hash_h
 # ---------------------------------------------------------------------------
 

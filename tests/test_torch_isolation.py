@@ -43,7 +43,10 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.serving.pipeline", "repro_torch.serving.workers",
               "repro_torch.core.simulate", "repro_torch.core.multiprobe",
               "repro_torch.core.ref_search", "repro_torch.core.accounting",
-              "repro_torch.data.datasets", "repro_torch.data.dedup"):
+              "repro_torch.data.datasets", "repro_torch.data.dedup",
+              "repro_torch.data.pipeline", "repro_torch.optim.adamw",
+              "repro_torch.optim.compression", "repro_torch.runtime.loop",
+              "repro_torch.launch.train", "repro_torch.tree"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -142,6 +145,17 @@ def test_mamba2_model_and_serve_cli_without_device_need_a_card():
                   lambda: serve.main(args + ["--device", "cpu"]))
 
 
+def test_train_cli_and_token_pipeline_without_device_need_a_card():
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train
+    args = ["--reduced", "--steps", "12", "--batch", "2", "--seq", "16",
+            "--lr", "1e-2"]
+    _needs_a_card(lambda: train.main(args),
+                  lambda: train.main(args + ["--device", "cpu"]))
+    _needs_a_card(lambda: TokenPipeline(16, 1, 4),
+                  lambda: TokenPipeline(16, 1, 4, device="cpu"))
+
+
 def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
     """On a CPU tensor the wrappers run the plain version and count no
     launch."""
@@ -190,14 +204,16 @@ def test_kernel_wrappers_take_their_plain_version_only_on_the_cpu():
 # import from the port's package of the same name.
 NOT_PORTED = {
     "core": {},
-    "data": {"TokenPipeline": "12", "PipelineState": "12"},
+    "data": {},
     "kernels": {},
     "serving": {},
     "persist": {},
     "checkpoint": {},
+    "optim": {},
+    "runtime": {},
     "models": {
         "prefill": "11.3", "decode_step": "11.3", "init_cache": "11.3",
-        "count_params": "11.4", "loss_fn": "12",
+        "count_params": "11.4",
     },
 }
 
