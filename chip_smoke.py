@@ -89,14 +89,33 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                versions on 96 tokens, and the reduced float32 config's
                loss, gradients and one AdamW step on the card against
                the CPU.  The SSD kernel is also held against its plain
-               version at one layer's inputs of a training step.
+               version at one layer's inputs of a training step;
+  train_dense -- after it, gemma-7b at its published width (d_model 3072,
+               16 heads of 256, d_ff 24,576, vocab 256,000, tied head,
+               softcap 30, bf16) cut to 6 of its 28 blocks (memory),
+               trained by ``launch/train.py``: 2 x 1,024 tokens a step
+               from ``TokenPipeline``, 16 steps, a checkpoint every 4, a
+               failure at step 8, and the same run uninterrupted; the
+               two loss trajectories must be bitwise alike and the loss
+               must fall.  Each step launches the flash kernel twice a
+               layer (the forward and its rematerialisation, with its
+               log-sum-exp) and the flash gradient kernel once.  Then
+               the step's ms (CUDA events), tokens/s and model TFLOP/s
+               (6 x ``count_params`` x tokens), peak memory, a traced
+               step's device time by part, and float32 at 2 blocks of
+               the published width: the card's kernels against the
+               CPU's plain versions on 96 tokens.  The flash gradient
+               kernel is held against its plain version at one layer's
+               inputs of a training step, and against its own second
+               launch, bitwise; the flash forward's output bitwise the
+               same with and without its log-sum-exp there.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers also count per design, and every
 launch of those two paths must go to their "tensor_core" designs, whose
 SASS must hold tensor-core (HMMA) instructions.  Each kernel is then
 held against its plain PyTorch version on the inputs its path gave it
-and timed with CUDA events (the SSD gradient kernel also against its own
+and timed with CUDA events (both gradient kernels also against their own
 second launch, bitwise); the hash kernel BITWISE, at the first call
 of every (phase, kind) of every path, and against the CPU on a sample
 of 65,536 rows.  One serving bucket and one embedding forward are
@@ -111,6 +130,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import copy
 import json
 import math
 import os
@@ -184,6 +204,19 @@ GRAD_LEAF_TOL, GRAD_ALL_TOL, GRAD_DEPTH = 0.1, 0.05, 2
 # distance one ulp of every weight moves the CPU's gradient (rounding is
 # amplified alike by both; a fault is off by ~1, thousands of times more)
 F32_CHAOS = 10
+# the train_dense path: gemma-7b at its published width (the retrieval
+# embedder) cut to DENSE_LAYERS of its 28 blocks (all 28 with bf16 weights
+# and gradients and float32 AdamW moments need 102 GB, past the card's 80:
+# PERF.md section 4), 2 x 1,024 tokens a step from TokenPipeline at vocab
+# 256,000, 16 steps, lr 3e-4, a checkpoint every 4 (in host memory:
+# MemoryCheckpoints), a failure at step 8
+DENSE_ARCH, DENSE_LAYERS, DENSE_BATCH, DENSE_SEQ = "gemma-7b", 6, 2, 1024
+DENSE_STEPS, DENSE_CKPT_EVERY, DENSE_FAIL_AT, DENSE_TIMED = 16, 4, 8, 3
+# the gradient kernel against its plain version at one layer's inputs of a
+# training step: each output within this fraction of its own largest
+# magnitude (bf16 outputs: a step is 2**-8 of a value, and P and dS are
+# rounded to bf16 on both sides), and bitwise its own second launch
+FLASH_BWD_TOL = 1e-2
 
 
 def check(cond, msg):
@@ -225,6 +258,7 @@ def hmma_counts(libs):
     tool = str(Path(_build.nvcc()).parent / "cuobjdump")
     counts = {}
     for name, kernel in (("flash_attention", "flash_attention_tc_kernel"),
+                         ("flash_attention_bwd", "_tc_kernel"),
                          ("ssd_scan", "ssd_scan_tc_kernel")):
         sass = subprocess.run([tool, "--dump-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
@@ -2051,6 +2085,382 @@ def ssd_bwd_record(a, kw, launches):
         "bitwise_repeat": bitwise, "workspace_bytes": p.work_floats * 4}
 
 
+class MemoryCheckpoints:
+    """Stands in for ``runtime.loop``'s checkpoint module while the
+    train_dense path runs (``with MemoryCheckpoints() as ckpts``): the
+    newest checkpoint of each directory is held in host memory, every
+    tensor leaf copied to pinned host memory, instead of written to
+    disk.  A
+    checkpoint of gemma-7b at 6 blocks is 24.5 GB (bf16 weights, float32
+    moments), and the card's machine allows 45 GiB of disk writes a run,
+    deleted files included: the 8 saves of the path's two runs would
+    write 196 GB.  The loop's own logic -- when to save, what to restore
+    after a failure, the pipeline state in ``extra`` -- runs unchanged;
+    the checkpoint format itself is the train path's (mamba2-130m, on
+    disk) and the CPU tests' (dense configs, read both ways)."""
+
+    def __init__(self):
+        self.by_dir, self.saves, self.nbytes, self.seconds = {}, 0, 0, 0.0
+
+    def save(self, ckpt_dir, step, tree, *, extra=None):
+        import torch
+        from repro_torch.tree import leaves_with_paths
+        t0 = time.perf_counter()
+        self.by_dir.pop(ckpt_dir, None)    # one kept: free the old first
+        _, vals = leaves_with_paths(tree)
+        host = []
+        for v in vals:                     # pinned: ~10x the pageable rate
+            if torch.is_tensor(v):
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                host.append(h.copy_(v.detach(), non_blocking=True))
+            else:
+                host.append(copy.deepcopy(v))
+        torch.cuda.synchronize()
+        self.by_dir[ckpt_dir] = (step, host, copy.deepcopy(extra or {}))
+        self.saves += 1
+        self.nbytes = sum(h.numel() * h.element_size() for h in host
+                          if torch.is_tensor(h))
+        self.seconds += time.perf_counter() - t0
+
+    def latest_step(self, ckpt_dir):
+        entry = self.by_dir.get(ckpt_dir)
+        return None if entry is None else entry[0]
+
+    def prune_old(self, ckpt_dir, keep=3):
+        pass                                # only the newest is held
+
+    def restore(self, ckpt_dir, tree_like, *, step=None):
+        import torch
+        from repro_torch.tree import leaves_with_paths, unflatten
+        t0 = time.perf_counter()
+        saved, host, extra = self.by_dir[ckpt_dir]
+        check(step in (None, saved), f"checkpoint {step} is not held")
+        _, cur = leaves_with_paths(tree_like)
+        out = [h.to(device=c.device, dtype=c.dtype, copy=True,
+                    non_blocking=True)
+               if torch.is_tensor(c) else copy.deepcopy(h)
+               for h, c in zip(host, cur)]
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return unflatten(tree_like, out), saved, copy.deepcopy(extra)
+
+    def __enter__(self):
+        from repro_torch.runtime import loop
+        self.real, loop.ckpt_lib = loop.ckpt_lib, self
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.runtime import loop
+        loop.ckpt_lib = self.real
+        self.by_dir.clear()
+
+
+def _each_ms(fn, n):
+    """Mean device time of fn() in ms over n calls (after one warm-up),
+    with CUDA events around each; every call's result is freed before the
+    next (two live training states of a dense model would not fit the
+    card)."""
+    import torch
+    out = fn()
+    del out
+    total = 0.0
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+        del out
+    return total / n
+
+
+def train_dense_path(args, captured):
+    """gemma-7b at its published width, cut to DENSE_LAYERS blocks, trained
+    by ``launch/train.py`` through the flash forward and gradient kernels
+    and AdamW in the fault-tolerant loop, with an injected failure whose
+    replay must repeat an uninterrupted run bit for bit.  Returns the
+    launch counts and the step numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import (Transformer, count_params, init_params,
+                                    layers, load_param_tree, param_tree,
+                                    value_and_grad)
+
+    cfg = train.cut_depth(get_config(DENSE_ARCH), DENSE_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.hd, cfg.d_ff, cfg.vocab,
+           cfg.tie_embeddings, cfg.logit_softcap, cfg.cdtype, cfg.n_layers)
+          == (3072, 16, 256, 24576, 256000, True, 30.0, torch.bfloat16,
+              DENSE_LAYERS), "gemma-7b must train at its published width")
+    n_params = count_params(cfg)
+    print(f"phase train_dense: {cfg.name} cut to {cfg.n_layers} of 28 "
+          f"blocks, {n_params / 1e9:.3f} B parameters (count_params), "
+          f"{DENSE_BATCH} x {DENSE_SEQ} tokens a step")
+    ops.flash_attention_cuda = kfa.flash_attention_cuda
+    ops.flash_attention_bwd_cuda = recorder(captured, "flash_attention_bwd",
+                                            kfa.flash_attention_bwd_cuda)
+    runs = {}
+    for name, fail in ((f"failure at step {DENSE_FAIL_AT}", True),
+                       ("uninterrupted", False)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dense_") as ck:
+            argv = ["--arch", DENSE_ARCH, "--layers", str(DENSE_LAYERS),
+                    "--steps", str(DENSE_STEPS), "--batch", str(DENSE_BATCH),
+                    "--seq", str(DENSE_SEQ), "--lr", "3e-4", "--ckpt-dir",
+                    ck, "--ckpt-every", str(DENSE_CKPT_EVERY), "--device",
+                    "cuda", "--seed", str(args.seed)]
+            if fail:
+                argv += ["--fail-at", str(DENSE_FAIL_AT)]
+            kfa.reset_launches()
+            held = torch.cuda.memory_allocated()   # by the earlier paths
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with MemoryCheckpoints() as ckpts:
+                stats = train.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = {
+            "flash_attention": kfa.flash_attention_cuda.launches,
+            "flash_attention_bwd": kfa.flash_attention_bwd_cuda.launches}
+        by_design = {
+            "flash_attention": dict(
+                kfa.flash_attention_cuda.launches_by_design),
+            "flash_attention_bwd": dict(
+                kfa.flash_attention_bwd_cuda.launches_by_design)}
+        runs[name] = (stats, launches)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        print(f"phase train_dense ({name}): {stats.steps_run} steps, "
+              f"{stats.restarts} restarts, {secs:.1f} s with the token "
+              f"draws and {ckpts.saves} checkpoints of "
+              f"{ckpts.nbytes / 1e9:.2f} GB in host memory "
+              f"({ckpts.seconds:.1f} s to save and restore); loss "
+              f"{stats.losses[0]:.4f} -> "
+              f"{stats.losses[-1]:.4f}; launches {launches}, by design "
+              f"{by_design}; peak device memory {peak:.2f} GiB above the "
+              f"{held / 2**30:.2f} GiB held before the run")
+        n = stats.steps_run
+        check(launches["flash_attention"] == 2 * cfg.n_layers * n,
+              "each step launches the flash kernel twice a layer (forward "
+              "and the rematerialised forward)")
+        check(launches["flash_attention_bwd"] == cfg.n_layers * n,
+              "each step launches the flash gradient kernel once a layer")
+        for k, v in launches.items():
+            check(by_design[k]["tensor_core"] == v,
+                  f"every training launch of {k} must take the tensor-core "
+                  f"design: {by_design[k]}")
+        check(all(math.isfinite(v) for v in stats.losses),
+              "non-finite training loss")
+        check(np.mean(stats.losses[-5:]) < np.mean(stats.losses[:5]),
+              "the loss did not fall")
+        torch.cuda.empty_cache()
+    (failed, launches), (clean, _) = (
+        runs[f"failure at step {DENSE_FAIL_AT}"], runs["uninterrupted"])
+    want = _replayed(clean.losses, (DENSE_FAIL_AT,), DENSE_CKPT_EVERY)
+    check(failed.restarts == 1 and failed.losses == want,
+          "the run with a failure must repeat the uninterrupted run's loss "
+          "trajectory bit for bit")
+    print(f"train_dense: the replayed trajectory equals the uninterrupted "
+          f"one bitwise over {len(want)} losses; losses "
+          f"{[round(v, 4) for v in clean.losses]}")
+
+    # ---- step time, tokens/s, model FLOP/s, peak memory, the trace -------
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    params = param_tree(model)
+    pipe = TokenPipeline(cfg.vocab, DENSE_BATCH, DENSE_SEQ, seed=args.seed,
+                         device="cuda")
+    draw_ms, batch = timed(lambda: pipe._batch_at(0), 1)
+    opt_cfg = optim.AdamWConfig(warmup_steps=10, total_steps=DENSE_STEPS)
+    step = train.make_step(model, opt_cfg)
+    out = {}
+    with train.deterministic():
+        state = (params, optim.init(params))
+        del params
+        held = torch.cuda.memory_allocated()   # with the model and state
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = _each_ms(lambda: step(state, batch), DENSE_TIMED)
+        peak = torch.cuda.max_memory_allocated()
+        tokens = DENSE_BATCH * DENSE_SEQ
+        tokens_s = tokens / (step_ms / 1e3)
+        tflops = 6 * n_params * tokens / (step_ms / 1e3) / 1e12
+        print(f"train_dense step: {step_ms:.2f} ms (CUDA events, mean of "
+              f"{DENSE_TIMED} after one warm-up; forward, backward and "
+              f"AdamW), {tokens_s:.0f} tokens/s, {tflops:.1f} model "
+              f"TFLOP/s (6 x {n_params / 1e9:.3f} B parameters x {tokens} "
+              f"tokens); peak device memory {peak / 2**30:.2f} GiB "
+              f"({(peak - held) / 2**30:.2f} above the {held / 2**30:.2f} "
+              f"GiB of the model, its state, the batch and earlier paths); "
+              f"TokenPipeline draw {draw_ms:.1f} ms a batch of "
+              f"{DENSE_BATCH} x {DENSE_SEQ + 1} x {cfg.vocab}")
+        rows, _, _ = traced(lambda: step(state, batch),
+                            "one dense training step")
+        part = {"flash_bwd": 0.0, "flash_fwd": 0.0, "products": 0.0,
+                "other": 0.0}
+        for e in rows:
+            key = e.key.lower()
+            name = ("flash_bwd" if "fa_bwd" in key else
+                    "flash_fwd" if "flash_attention" in key else
+                    "products" if any(w in key for w in (
+                        "gemm", "xmma", "cutlass", "nvjet")) else "other")
+            part[name] += e.self_device_time_total / 1e3
+        # the cross entropy and the softcap (the float32 logits) alone
+        logits = torch.randn((DENSE_BATCH, DENSE_SEQ, cfg.vocab),
+                             device="cuda", dtype=torch.bfloat16)
+        logits.requires_grad_()
+
+        def loss_part():
+            lf = torch.tanh(logits.float() / cfg.logit_softcap) * \
+                cfg.logit_softcap
+            return torch.autograd.grad(layers.cross_entropy(lf, batch[1]),
+                                       logits)
+        part["cross_entropy"], _ = timed(loss_part, 3)
+        del logits
+        # and the AdamW update of the whole state, alone
+        _, grads = value_and_grad(model, *batch)
+        part["adamw"] = _each_ms(lambda: optim.update(
+            opt_cfg, grads, state[1], state[0]), DENSE_TIMED)
+        del grads
+        part["float32_glue"] = (part["other"] - part["cross_entropy"]
+                                - part["adamw"])
+        print("train_dense step device ms by part: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in part.items())
+              + " (cross_entropy: the softcap and cross entropy on the "
+                "float32 logits, forward and backward, and adamw: the "
+                "update of the whole state, each timed alone; "
+                "float32_glue: the rest of other)")
+        out.update(step_ms=step_ms, tokens_s=tokens_s, tflops=tflops,
+                   peak_gib=peak / 2**30, draw_ms=draw_ms, parts=part)
+    del state, step, model
+    torch.cuda.empty_cache()
+
+    # ---- float32 at 2 blocks of the published width: card against CPU ----
+    tokens_few = (batch[0][:1, :96].cpu(), batch[1][:1, :96].cpu())
+    c2 = dataclasses.replace(train.cut_depth(get_config(DENSE_ARCH), 2),
+                             param_dtype="float32", compute_dtype="float32")
+    m16 = init_params(train.cut_depth(get_config(DENSE_ARCH), 2),
+                      generator=torch.Generator().manual_seed(args.seed),
+                      device="cpu")
+    m32 = Transformer(c2, "cpu")
+    load_param_tree(m32, param_tree(m16))
+    del m16
+    l32, g32 = value_and_grad(m32, *tokens_few)
+    out["f32_card_vs_cpu"] = f32_card_vs_cpu(c2, m32, tokens_few, l32, g32,
+                                             False)
+    del m32, g32
+    return launches, by_design, out
+
+
+def flash_train_forward(a):
+    """The flash forward at the train path's inputs (one layer's q, k, v
+    of a training step, the views the attention layer hands over): its
+    output bitwise the same with and without the lse, the lse within
+    rtol = atol = 1e-4 of the plain one, the output within the forward
+    record's tolerance: the train path's part of the
+    ``flash_attention`` record."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    q, k, v = (t.detach() for t in a[:3])
+    ms, (o, lse) = timed(lambda: kfa.flash_attention_cuda(
+        q, k, v, return_lse=True), REPS)
+    plain = kfa.flash_attention_cuda(q, k, v)
+    check(torch.equal(o, plain),
+          "the flash forward's output changes with its lse output")
+    want_o, want_lse = ref.attention_ref(q, k, v, return_lse=True)
+    err = float((o.float() - want_o.float()).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    check(torch.allclose(o.float(), want_o.float(), rtol=BF16_TOL,
+                         atol=BF16_TOL),
+          f"flash_attention differs from its plain version by {err} at the "
+          f"train path's inputs")
+    check(torch.allclose(lse, want_lse, rtol=1e-4, atol=1e-4),
+          f"the flash forward's lse differs from the plain one by {lse_err}")
+    print(f"flash_attention at the train path's inputs: q {tuple(q.shape)} "
+          f"strides {q.stride()}: {ms:.4f} ms with the lse, output bitwise "
+          f"the same without it, max |err| {err:.3g} (tolerance "
+          f"{BF16_TOL}), lse max |err| {lse_err:.3g} (1e-4)")
+    return {"train_max_abs_err": err, "train_lse_max_abs_err": lse_err,
+            "train_ms": ms}
+
+
+def flash_bwd_record(a, kw, launches, by_design, hmma):
+    """The flash gradient kernel against its plain version at one layer's
+    (q, k, v, o, lse, dout) of a training step, and against itself: two
+    launches bitwise equal; PyTorch's fused attention's backward at the
+    same inputs is the library time (measured only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    a = tuple(t.detach() for t in a)
+    q, k, v, o, lse, dout = a
+    causal = kw.get("causal", True)
+    B, H, S, dh = q.shape
+    strides = [s for t in (q, k, v, o, dout) for s in t.stride()[:3]]
+    design = kfa.bwd_plan(q.dtype, dh, S, k.shape[2], strides=strides,
+                          aligned=all(t.data_ptr() % 16 == 0
+                                      for t in a)).design
+    check(design == "tensor_core", f"flash_attention_bwd plans {design}")
+    ms, got = timed(lambda: kfa.flash_attention_bwd_cuda(*a, **kw), REPS)
+    again = kfa.flash_attention_bwd_cuda(*a, **kw)
+    bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
+    check(bitwise, "two launches of flash_attention_bwd differ")
+    plain_ms, want = timed(lambda: ref.flash_attention_bwd_ref(*a, **kw), 1)
+    errs, rel = {}, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(bool(torch.isfinite(g.float()).all()),
+              f"flash_attention_bwd {name} is not finite")
+        g, w = g.float(), w.float()
+        errs[name] = float((g - w).abs().max())
+        scale = float(w.abs().max())
+        rel[name] = errs[name] / max(scale, 1e-30)
+        check(torch.allclose(g, w, rtol=FLASH_BWD_TOL,
+                             atol=FLASH_BWD_TOL * scale),
+              f"flash_attention_bwd {name} differs from its plain version "
+              f"by {errs[name]} (largest |value| {scale})")
+    qd, kd, vd = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal)
+        library_ms, _ = timed(lambda: torch.autograd.grad(
+            lib_out, (qd, kd, vd), dout, retain_graph=True), REPS)
+    del lib_out
+    nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, dout))
+              + lse.numel() * 4
+              + sum(t.numel() * t.element_size() for t in got))
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[2])
+    flops = 10.0 * pairs * dh     # five products, 2 FLOPs a multiply-add
+    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    print(f"flash_attention_bwd ({design}): q {tuple(q.shape)} {q.dtype} "
+          f"strides {q.stride()}, dout strides {dout.stride()}: {ms:.4f} ms "
+          f"(plain {plain_ms:.2f} ms, scaled_dot_product_attention's "
+          f"backward {library_ms:.4f} ms, bound {bound:.4f} ms: "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), max |err| "
+          f"{errs}, over the largest |value| {rel} (tolerance "
+          f"{FLASH_BWD_TOL}), two launches bitwise equal")
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/flash_xla.py:96",
+        "replaces_note": "no Pallas counterpart: the reference's custom "
+                         "VJP runs its backward as an XLA lax.scan",
+        "launches": launches, "max_abs_err": max(errs.values()),
+        "max_abs_err_by_output": errs, "max_rel_err_by_output": rel,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": library_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "backward (torch.autograd.grad)",
+        "design": design, "launches_by_design": by_design,
+        "bitwise_repeat": bitwise, "sass_hmma": hmma}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2063,6 +2473,10 @@ def main() -> int:
     # once, at the first cuBLAS call, which an earlier path makes
     # (repro_torch.launch.train.CUBLAS_WORKSPACE_CONFIG)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    # and the allocator's expandable segments, which the train_dense
+    # path's AdamW step needs (repro_torch.launch.train.CUDA_ALLOC_CONF)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2162,13 +2576,24 @@ def main() -> int:
     records["ssd_scan"].update(ssd_train_forward(bwd_args[0]))
     records["ssd_scan_bwd"] = ssd_bwd_record(*bwd_args,
                                              launches["ssd_scan_bwd"])
+    del bwd_args
+    torch.cuda.empty_cache()
+
+    launches, by_design, _ = train_dense_path(args, captured)
+    fa_args, fa_kw = captured.pop("flash_attention_bwd")
+    records["flash_attention"]["train_launches"] = launches["flash_attention"]
+    records["flash_attention"].update(flash_train_forward(fa_args))
+    records["flash_attention_bwd"] = flash_bwd_record(
+        fa_args, fa_kw, launches["flash_attention_bwd"],
+        by_design["flash_attention_bwd"], hmma["flash_attention_bwd"])
+    del fa_args
     print(f"total {time.perf_counter() - t_start:.0f} s")
     records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
                                           own_launches)
 
     print(card)
-    order = ("bucket_search", "bucket_gather", "flash_attention", "ssd_scan",
-             "ssd_scan_bwd", "lsh_hash")
+    order = ("bucket_search", "bucket_gather", "flash_attention",
+             "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd", "lsh_hash")
     print(json.dumps({"kernels": [records[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name, "count": count}}))

@@ -12,6 +12,14 @@
 // accumulator, and the output acc / max(l, 1e-30) in the inputs' dtype.
 // Strides are arguments (the last dim must be unit-stride), so q, k, v
 // and o can be views of the (B, S, H, dh) projections: no copies.
+// On request (a non-null lse) both designs also write each row's
+// log-sum-exp, lse = m + log(max(l, 1e-30)) in natural units of the
+// scaled scores, as the reference's custom VJP keeps it
+// (src/repro/models/flash_xla.py _fwd): the training backward
+// (csrc/flash_attention_bwd.cu) recomputes P = exp(s - lse) from it.  The
+// tensor-core design holds m and l in log2 units of the raw dots and
+// converts once, at the row's end; the output's bits do not depend on
+// whether lse is written.
 //
 // What bounds it on an H100.  At the embedder's shapes (Sq = Sk = 128,
 // dh = 256, bf16) the bytes: q, k, v and o are each read or written once
@@ -118,9 +126,9 @@ struct Strides {  // element strides of (batch, head, row)
 template <typename T, int G>
 __global__ void __launch_bounds__(WARPS * 32) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int H, int group, int Sq,
-    int Sk, int dh, float scale, int causal, Strides qs, Strides ks,
-    Strides vs, Strides os) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    int H, int group, int Sq, int Sk, int dh, float scale, int causal,
+    Strides qs, Strides ks, Strides vs, Strides os) {
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
@@ -222,6 +230,8 @@ __global__ void __launch_bounds__(WARPS * 32) flash_attention_kernel(
   }
   if (row >= Sq) return;
   const float den = fmaxf(l, 1e-30f);
+  if (lse != nullptr && lane == 0)   // m is in units of the scaled scores
+    lse[static_cast<long long>(bh) * Sq + row] = m + logf(den);
   T* orow = o + b * os.b + h * os.h + row * os.s;
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -242,9 +252,9 @@ size_t cuda_core_smem_bytes(int dh) {
 
 template <typename T, int G>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Hkv, int Sq, int Sk, int dh, float scale,
-                   int causal, Strides qs, Strides ks, Strides vs, Strides os,
-                   cudaStream_t st) {
+                   float* lse, int B, int H, int Hkv, int Sq, int Sk, int dh,
+                   float scale, int causal, Strides qs, Strides ks,
+                   Strides vs, Strides os, cudaStream_t st) {
   const size_t smem = cuda_core_smem_bytes(dh);
   auto fn = flash_attention_kernel<T, G>;
   if (smem > 48 * 1024) {
@@ -256,8 +266,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (Sq + WARPS - 1) / WARPS);
   fn<<<grid, WARPS * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / Hkv, Sq, Sk, dh,
-      scale, causal, qs, ks, vs, os);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H, H / Hkv, Sq, Sk,
+      dh, scale, causal, qs, ks, vs, os);
   return cudaGetLastError();
 }
 
@@ -285,8 +295,9 @@ __global__ void __launch_bounds__(TC_WARPS * 32, 2)
     flash_attention_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int H, int group, int Sq, int Sk, int dh_rt, float scale_log2,
-    int causal, Strides qs, Strides ks, Strides vs, Strides os) {
+    float* __restrict__ lse, int H, int group, int Sq, int Sk, int dh_rt,
+    float scale_log2, int causal, Strides qs, Strides ks, Strides vs,
+    Strides os) {
   constexpr int BM = 16 * TC_WARPS;
   constexpr int THREADS = 32 * TC_WARPS;
   constexpr int STAGES = TC_STAGES;
@@ -505,6 +516,13 @@ __global__ void __launch_bounds__(TC_WARPS * 32, 2)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.0f / fmaxf(l, 1e-30f);
+    // the log-sum-exp of the row's scaled scores, in natural units (the
+    // reference's): m and the sum are in log2 units of the raw dots here
+    const int row = r == 0 ? row_a : row_b;
+    if (lse != nullptr && qd == 0 && row < Sq)
+      lse[static_cast<long long>(bh) * Sq + row] =
+          fmaf(m_r[r], scale_log2, log2f(fmaxf(l, 1e-30f))) *
+          0.6931471805599453f;
   }
   __nv_bfloat16* o_s = q_s + warp * 16 * ld;
 #pragma unroll
@@ -529,9 +547,9 @@ __global__ void __launch_bounds__(TC_WARPS * 32, 2)
 
 template <int DM, bool EXACT>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int Hkv, int Sq, int Sk, int dh,
-                      float scale, int causal, Strides qs, Strides ks,
-                      Strides vs, Strides os, cudaStream_t st) {
+                      float* lse, int B, int H, int Hkv, int Sq, int Sk,
+                      int dh, float scale, int causal, Strides qs,
+                      Strides ks, Strides vs, Strides os, cudaStream_t st) {
   const size_t smem = tc_smem_bytes(dh);
   auto fn = flash_attention_tc_kernel<DM, key_tile(DM), EXACT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -543,8 +561,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, H / Hkv, Sq, Sk, dh, scale * 1.4426950408889634f, causal, qs, ks,
-      vs, os);
+      lse, H, H / Hkv, Sq, Sk, dh, scale * 1.4426950408889634f, causal, qs,
+      ks, vs, os);
   return cudaGetLastError();
 }
 
@@ -559,13 +577,16 @@ extern "C" {
 // The "cuda_core" design.  Attention of q (B, H, Sq, dh) against k, v
 // (B, Hkv, Sk, dh), written to o (B, H, Sq, dh); every tensor is reached
 // through its (batch, head, row) element strides with a unit-stride last
-// dim.  dtype 0 is float32,
+// dim.  Unless lse is null, each row's log-sum-exp of its scaled scores,
+// m + log(max(l, 1e-30)) in natural units, goes to lse (B, H, Sq) float32
+// (contiguous); the output's bits do not depend on it.  dtype 0 is float32,
 // 1 bfloat16 (all four tensors alike).  Needs dh % 4 == 0, dh <= 256,
 // H % Hkv == 0, and Sq == Sk when causal.  Returns the CUDA error code
 // (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int dtype, int B, int H, int Hkv, int Sq,
-                           int Sk, int dh, float scale, int causal,
+                           void* o, float* lse, int dtype, int B, int H,
+                           int Hkv, int Sq, int Sk, int dh, float scale,
+                           int causal,
                            long long qsb, long long qsh, long long qss,
                            long long ksb, long long ksh, long long kss,
                            long long vsb, long long vsh, long long vss,
@@ -580,14 +601,16 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wide = dh > 128;
   if (dtype == 0)
-    return wide ? launch<float, 2>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                   causal, qs, ks, vs, os, st)
-                : launch<float, 1>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                   causal, qs, ks, vs, os, st);
-  return wide ? launch<__nv_bfloat16, 2>(q, k, v, o, B, H, Hkv, Sq, Sk, dh,
-                                         scale, causal, qs, ks, vs, os, st)
-              : launch<__nv_bfloat16, 1>(q, k, v, o, B, H, Hkv, Sq, Sk, dh,
-                                         scale, causal, qs, ks, vs, os, st);
+    return wide ? launch<float, 2>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, dh,
+                                   scale, causal, qs, ks, vs, os, st)
+                : launch<float, 1>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, dh,
+                                   scale, causal, qs, ks, vs, os, st);
+  return wide ? launch<__nv_bfloat16, 2>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
+                                         dh, scale, causal, qs, ks, vs, os,
+                                         st)
+              : launch<__nv_bfloat16, 1>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
+                                         dh, scale, causal, qs, ks, vs, os,
+                                         st);
 }
 
 // Dynamic shared bytes of one block: design 0 "cuda_core", 1
@@ -601,8 +624,9 @@ long long flash_attention_smem_bytes(int design, int dh) {
 // needs dh % 16 == 0, dh <= 256, and every pointer and (batch, head, row)
 // stride 16-byte aligned.  Returns the CUDA error code (0 on success).
 int flash_attention_tc_launch(const void* q, const void* k, const void* v,
-                              void* o, int B, int H, int Hkv, int Sq, int Sk,
-                              int dh, float scale, int causal,
+                              void* o, float* lse, int B, int H, int Hkv,
+                              int Sq, int Sk, int dh, float scale,
+                              int causal,
                               long long qsb, long long qsh, long long qss,
                               long long ksb, long long ksh, long long kss,
                               long long vsb, long long vsh, long long vss,
@@ -620,22 +644,22 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
       os{osb, osh, oss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh == 64)
-    return launch_tc<64, true>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                               causal, qs, ks, vs, os, st);
+    return launch_tc<64, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
+                               dh, scale, causal, qs, ks, vs, os, st);
   if (dh < 64)
-    return launch_tc<64, false>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                causal, qs, ks, vs, os, st);
+    return launch_tc<64, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
+                                dh, scale, causal, qs, ks, vs, os, st);
   if (dh == 128)
-    return launch_tc<128, true>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                causal, qs, ks, vs, os, st);
+    return launch_tc<128, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
+                                dh, scale, causal, qs, ks, vs, os, st);
   if (dh < 128)
-    return launch_tc<128, false>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                 causal, qs, ks, vs, os, st);
+    return launch_tc<128, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
+                                 dh, scale, causal, qs, ks, vs, os, st);
   if (dh == 256)
-    return launch_tc<256, true>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                causal, qs, ks, vs, os, st);
-  return launch_tc<256, false>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                               causal, qs, ks, vs, os, st);
+    return launch_tc<256, true>(q, k, v, o, lse, B, H, Hkv, Sq, Sk,
+                                dh, scale, causal, qs, ks, vs, os, st);
+  return launch_tc<256, false>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, dh,
+                               scale, causal, qs, ks, vs, os, st);
 }
 
 }  // extern "C"

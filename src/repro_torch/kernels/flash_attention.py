@@ -1,4 +1,5 @@
-"""Wrapper of the hand-written CUDA flash-attention kernels.
+"""Wrappers of the hand-written CUDA flash-attention kernels: the forward
+and its gradient.
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` (built on
 first use) on a CUDA tensor or raises; on a CPU tensor it runs the
@@ -6,9 +7,15 @@ kernel's plain version, ``ref.attention_ref``.  The source holds two
 designs, and ``plan`` picks one from the dtype, the head width and the
 alignment before the launch: "tensor_core" (bf16 on ``mma.sync``, 64
 query rows a block) or "cuda_core" (one warp a query row, float32
-products).  The wrapper counts its launches in ``launches`` and, per
-design, in ``launches_by_design``.  There is no gradient: the port
-serves, and the TPU kernel it replaces has no backward either.
+products).  With ``return_lse`` it also returns each row's log-sum-exp,
+which the gradient needs.
+
+``flash_attention_bwd_cuda`` launches ``csrc/flash_attention_bwd.cu``,
+the gradient of the reference's custom VJP (``models/flash_xla.py``
+``_bwd_vjp``), or on CPU tensors its plain version,
+``ref.flash_attention_bwd_ref``; ``bwd_plan`` picks its design by the
+same rule.  Each wrapper counts its launches in ``launches`` and, per
+design, in ``launches_by_design``.
 """
 from __future__ import annotations
 
@@ -38,13 +45,28 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         lib.flash_attention_launch.argtypes = (
-            [_P] * 4 + [_I] * 7 + [ctypes.c_float, _I] + [_LL] * 12 + [_P])
+            [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I] + [_LL] * 12 + [_P])
         lib.flash_attention_launch.restype = _I
         lib.flash_attention_tc_launch.argtypes = (
-            [_P] * 4 + [_I] * 6 + [ctypes.c_float, _I] + [_LL] * 12 + [_P])
+            [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I] + [_LL] * 12 + [_P])
         lib.flash_attention_tc_launch.restype = _I
         lib.flash_attention_smem_bytes.argtypes = [_I, _I]
         lib.flash_attention_smem_bytes.restype = _LL
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    if not getattr(lib, "_typed", False):
+        lib.flash_attention_bwd_launch.argtypes = (
+            [_P] * 10 + [_I] * 7 + [ctypes.c_float, _I] + [_LL] * 15 + [_P])
+        lib.flash_attention_bwd_launch.restype = _I
+        lib.flash_attention_bwd_tc_launch.argtypes = (
+            [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I] + [_LL] * 15 + [_P])
+        lib.flash_attention_bwd_tc_launch.restype = _I
+        lib.flash_attention_bwd_smem_bytes.argtypes = [_I, _I, _I]
+        lib.flash_attention_bwd_smem_bytes.restype = _LL
         lib._typed = True
     return lib
 
@@ -68,6 +90,17 @@ def key_tile(dh: int) -> int:
     return 64 if dh <= 128 else 32
 
 
+def _tensor_core(dtype, dh, strides, aligned) -> bool:
+    """Whether a call takes the tensor-core design (forward and gradient
+    alike): bf16, dh % 16 == 0, every stride a whole number of 16-byte
+    chunks and every pointer 16-byte aligned.  Raises ValueError for a
+    head width neither design takes."""
+    _need(dh % 4 == 0 and 0 < dh <= MAX_DH,
+          f"head width {dh} must be a multiple of 4 in [4, {MAX_DH}]")
+    return (dtype == torch.bfloat16 and dh % 16 == 0 and aligned
+            and all(s % 8 == 0 for s in strides))
+
+
 def plan(dtype: torch.dtype, dh: int, Sq: int, *, strides=(),
          aligned: bool = True) -> Plan:
     """The design and sizing of a call at head width dh and Sq query rows.
@@ -78,10 +111,7 @@ def plan(dtype: torch.dtype, dh: int, Sq: int, *, strides=(),
     takes the tensor-core design; float32 (whose tolerance bf16 products
     could not meet) and any other bf16 input the CUDA-core one.  Raises
     ValueError for an input neither design takes."""
-    _need(dh % 4 == 0 and 0 < dh <= MAX_DH,
-          f"head width {dh} must be a multiple of 4 in [4, {MAX_DH}]")
-    if (dtype == torch.bfloat16 and dh % 16 == 0 and aligned
-            and all(s % 8 == 0 for s in strides)):
+    if _tensor_core(dtype, dh, strides, aligned):
         kt = key_tile(dh)
         p = Plan("tensor_core", TC_ROWS, kt,
                  (TC_ROWS + 4 * kt) * (dh + 8) * 2)
@@ -94,18 +124,9 @@ def plan(dtype: torch.dtype, dh: int, Sq: int, *, strides=(),
     return p
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, scale: float | None = None
-                         ) -> torch.Tensor:
-    """Attention of q (B, H, Sq, dh) against k, v (B, Hkv, Sk, dh), H a
-    multiple of Hkv (query head h reads kv head h // (H // Hkv)); f32 or
-    bf16, all alike; returns (B, H, Sq, dh) in q's dtype.
-
-    Any Sq and Sk (nothing is padded).  ``causal`` masks keys past the
-    query's own position, aligned top-left as the TPU kernel aligns it;
-    the reference's plain version aligns bottom-right, and the two agree
-    only at Sq == Sk, so causal attention with Sq != Sk is refused.
-    """
+def _check(q, k, v, causal):
+    """The shapes and dtypes both wrappers take; returns (B, H, Hkv, Sq,
+    Sk, dh)."""
     _need(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
           "q must be (B, H, Sq, dh) and k, v (B, Hkv, Sk, dh)")
     B, H, Sq, dh = q.shape
@@ -120,21 +141,43 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           f"causal attention needs Sq == Sk (got {Sq}, {Sk}): the TPU "
           f"kernel and the reference's plain version align the mask "
           f"differently otherwise")
+    return B, H, Hkv, Sq, Sk, dh
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, scale: float | None = None,
+                         return_lse: bool = False):
+    """Attention of q (B, H, Sq, dh) against k, v (B, Hkv, Sk, dh), H a
+    multiple of Hkv (query head h reads kv head h // (H // Hkv)); f32 or
+    bf16, all alike; returns (B, H, Sq, dh) in q's dtype and, with
+    ``return_lse``, each row's log-sum-exp of its scaled scores (B, H, Sq)
+    float32 (the output's bits are the same either way).
+
+    Any Sq and Sk (nothing is padded).  ``causal`` masks keys past the
+    query's own position, aligned top-left as the TPU kernel aligns it;
+    the reference's plain version aligns bottom-right, and the two agree
+    only at Sq == Sk, so causal attention with Sq != Sk is refused.
+    """
+    B, H, Hkv, Sq, Sk, dh = _check(q, k, v, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
     if not q.is_cuda:
-        return ref.attention_ref(q, k, v, causal=causal, scale=scale)
+        return ref.attention_ref(q, k, v, causal=causal, scale=scale,
+                                 return_lse=return_lse)
     _need(k.device == q.device and v.device == q.device,
           "q, k, v must be on one CUDA device")
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
         _need(t.stride(3) == 1, f"{name}: the head dim must be unit-stride")
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     p = plan(q.dtype, dh, Sq, strides=strides,
              aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v, o)))
     if o.numel() == 0:
-        return o
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+        return (o, lse) if return_lse else o
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if return_lse else None)
     shape = (B, H, Hkv, Sq, Sk, dh, float(scale), int(causal))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib = _lib()
@@ -148,14 +191,113 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"CUDA error {err}")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_design[p.design] += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+class BwdPlan(NamedTuple):
+    """How one gradient call runs, as ``csrc/flash_attention_bwd.cu``
+    sizes it: a dK/dV block owns ``key_rows`` keys and stages
+    ``query_tile`` queries at a time; a dQ block owns ``dq_rows`` query
+    rows and stages ``dq_key_tile`` keys at a time."""
+    design: str        # "tensor_core" or "cuda_core"
+    key_rows: int
+    query_tile: int
+    dq_rows: int
+    dq_key_tile: int
+    dkdv_smem_bytes: int
+    dq_smem_bytes: int
+
+
+def bwd_plan(dtype: torch.dtype, dh: int, Sq: int, Sk: int, *, strides=(),
+             aligned: bool = True) -> BwdPlan:
+    """The gradient's design and sizing, by ``plan``'s rule over the
+    (batch, head, row) strides of q, k, v, o and dout.  Raises
+    ValueError for an input neither design takes."""
+    if _tensor_core(dtype, dh, strides, aligned):
+        kt = key_tile(dh)
+        p = BwdPlan("tensor_core", 32, 64, TC_ROWS, kt,
+                    2 * (32 + 64) * (dh + 8) * 2 + 2 * 32 * (64 + 8) * 2
+                    + 2 * 64 * 4,
+                    (2 * TC_ROWS + 2 * kt) * (dh + 8) * 2)
+    else:
+        p = BwdPlan("cuda_core", 8, 32, CC_ROWS, CC_TILE_K,
+                    (2 * 8 * dh + 2 * 32 * (dh + 4) + 2 * 32) * 4,
+                    (2 * CC_ROWS * dh + 2 * CC_TILE_K * (dh + 4)) * 4)
+    _need(-(-Sk // p.key_rows) <= MAX_ROW_TILES, f"Sk={Sk} too long")
+    _need(-(-Sq // p.dq_rows) <= MAX_ROW_TILES, f"Sq={Sq} too long")
+    for smem in (p.dkdv_smem_bytes, p.dq_smem_bytes):
+        _need(smem <= SMEM_LIMIT, f"dh={dh} needs {smem} bytes of shared "
+              f"memory, past the {SMEM_LIMIT} a block may have")
+    return p
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool = True, scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The gradient of ``flash_attention_cuda``: (dq, dk, dv) of q, k, v
+    given its output o, its ``lse`` (B, H, Sq) float32 and the output's
+    gradient ``dout``, all in q's dtype (o and dout shaped like q).  The
+    outputs are new contiguous tensors in the inputs' dtype.
+
+    q, k, v, o and dout are read through their strides; an input whose
+    head dim is not unit-stride (which autograd may hand over as
+    ``dout``) is copied once first.  No atomics: two launches are bitwise
+    alike.
+    """
+    B, H, Hkv, Sq, Sk, dh = _check(q, k, v, causal)
+    _need(o.shape == q.shape and dout.shape == q.shape,
+          f"o and dout must be shaped like q {tuple(q.shape)}")
+    _need(o.dtype == dout.dtype == q.dtype,
+          f"o and dout must be {q.dtype}, got {o.dtype}, {dout.dtype}")
+    _need(lse.shape == (B, H, Sq) and lse.dtype == torch.float32,
+          f"lse must be ({B}, {H}, {Sq}) float32")
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    if not q.is_cuda:
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                           causal=causal, scale=scale)
+    _need(all(t.device == q.device for t in (k, v, o, lse, dout)),
+          "every input must be on one CUDA device")
+    q, k, v, o, dout = (t if t.stride(3) == 1 else t.contiguous()
+                        for t in (q, k, v, o, dout))
+    lse = lse.contiguous()
+    dq = torch.empty((B, H, Sq, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Hkv, Sk, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    strides = [s for t in (q, k, v, o, dout) for s in t.stride()[:3]]
+    p = bwd_plan(q.dtype, dh, Sq, Sk, strides=strides, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, o, dout, dq, dk, dv)))
+    if B * H * Sq == 0:        # no query: nothing reaches k or v
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq,
+                                        dk, dv))
+    shape = (B, H, Hkv, Sq, Sk, dh, float(scale), int(causal))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _bwd_lib()
+    if p.design == "tensor_core":
+        err = lib.flash_attention_bwd_tc_launch(*ptrs, *shape, *strides,
+                                                stream)
+    else:
+        err = lib.flash_attention_bwd_launch(*ptrs, _DTYPES[q.dtype], *shape,
+                                             *strides, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed ({p.design}):"
+                           f" CUDA error {err}")
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.launches_by_design[p.design] += 1
+    return dq, dk, dv
 
 
 def reset_launches() -> None:
-    """Set the launch counts, total and per design, to 0."""
-    flash_attention_cuda.launches = 0
-    flash_attention_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
+    """Set the launch counts of both wrappers, total and per design, to
+    0."""
+    for fn in (flash_attention_cuda, flash_attention_bwd_cuda):
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
-flash_attention_cuda.launches = 0
-flash_attention_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
+reset_launches()

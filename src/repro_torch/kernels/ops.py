@@ -1,5 +1,5 @@
-"""Dispatch around the kernels: the per-shard bucket scan, attention, the
-SSD scan (with its gradient) and the p-stable hash.
+"""Dispatch around the kernels: the per-shard bucket scan, attention and
+the SSD scan (each with its gradient) and the p-stable hash.
 
 ``bucket_search`` takes the typed ``QueryBatch``/``StoreView`` surface
 (keyword-only, every tensor with a leading shard axis) and dispatches on
@@ -23,7 +23,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.bucket_search import (bucket_gather_cuda,
                                                bucket_search_cuda)
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.lsh_hash import lsh_hash_cuda
 from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.kernels.types import QueryBatch, StoreView
@@ -180,18 +181,39 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Attention with its gradient, the reference's custom VJP
+    (``models/flash_xla.py``): the forward kernel with its log-sum-exp,
+    saving (q, k, v, out, lse) and nothing score-sized, and the gradient
+    kernel, which recomputes the scores blockwise (both plain versions
+    on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                      return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(
+            q, k, v, o, lse, do.to(q.dtype), causal=ctx.causal,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
     """(B, H, Sq, dh) x (B, Hkv, Sk, dh) -> (B, H, Sq, dh): the flash
     kernel on CUDA tensors, its plain version on CPU tensors.  The
     reference pads Sq and Sk to its 128-row tiles here; the kernel takes
-    any length, so nothing is padded.  There is no backward kernel yet:
-    with a gradient required it raises rather than hand back an output
-    that autograd cannot differentiate."""
+    any length, so nothing is padded.  With a gradient required it runs
+    as an autograd function whose backward is the gradient kernel (its
+    plain version on the CPU)."""
     if _needs_grad(q, k, v):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel yet: dense-family "
-            "training (the counterpart of flash_xla.py's custom VJP) is "
-            "ROADMAP Queue 1 item 12")
+        return _FlashAttention.apply(q, k, v, causal, scale)
     return flash_attention_cuda(q, k, v, causal=causal, scale=scale)
 
 

@@ -153,26 +153,69 @@ def bucket_gather_ref(q, qsq, start, end, p, psq, gid, pvalid,
     return topd, topg, cnt
 
 
-def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None):
+def _scores(q, k, causal: bool, scale: float):
+    """(q * scale in float32, k repeated to every query head in float32,
+    the scores (q * scale) . k (B, H, Sq, Sk) masked to -1e30 at cols >
+    rows (top-left) when causal)."""
+    Sq = q.shape[2]
+    qs = q.float() * scale
+    kq = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.matmul(qs, kq.transpose(-1, -2))
+    if causal:
+        keep = torch.ones((Sq, k.shape[2]), dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~keep, -1e30)
+    return qs, kq, s
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None,
+                  return_lse: bool = False):
     """Exact softmax attention (plain version of ``flash_attention_cuda``).
 
     q (B, H, Sq, dh), k/v (B, Hkv, Sk, dh); query head h reads kv head
     h // (H // Hkv).  Scores (q * scale) . k in float32, the causal mask
     rows >= cols (top-left, as the kernel has it), float32 weights and
-    sums; the output in q's dtype.
+    sums; the output in q's dtype.  With ``return_lse`` also each row's
+    log-sum-exp of its scores (B, H, Sq) float32, the reference's
+    ``m + log(l)`` (``models/flash_xla.py`` ``_fwd``).
     """
-    H, Sq, dh = q.shape[1], q.shape[2], q.shape[3]
-    group = H // k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    group = q.shape[1] // k.shape[1]
+    _, _, s = _scores(q, k, causal, scale)
+    vq = v.float().repeat_interleave(group, dim=1)
+    o = torch.matmul(torch.softmax(s, dim=-1), vq).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, causal: bool = True,
+                            scale: float | None = None):
+    """The gradient of attention (plain version of
+    ``flash_attention_bwd_cuda``): the reference's ``_bwd_vjp``
+    (``models/flash_xla.py``) in PyTorch, with its rounding points.
+
+    delta = rowsum(dO O); P = exp(s - lse) rounded to v's dtype; dS = P
+    (dP - delta) rounded to k's dtype; dq, dk and dv summed in float32,
+    the scale on dq and inside q for dk, dk and dv summed over each kv
+    head's group of query heads; the causal mask top-left.  Returns (dq,
+    dk, dv) in the inputs' dtypes.
+    """
+    B, H, _, dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
-    kq = k.float().repeat_interleave(group, dim=1)
-    vq = v.float().repeat_interleave(group, dim=1)
-    s = torch.matmul(q.float() * scale, kq.transpose(-1, -2))
-    if causal:
-        keep = torch.ones((Sq, k.shape[2]), dtype=torch.bool,
-                          device=q.device).tril()
-        s = s.masked_fill(~keep, -1e30)
-    return torch.matmul(torch.softmax(s, dim=-1), vq).to(q.dtype)
+    qs, kq, s = _scores(q, k, causal, scale)
+    vq = v.float().repeat_interleave(H // Hkv, dim=1)
+    do = dout.float()
+    delta = torch.sum(do * o.float(), dim=-1, keepdim=True)
+    p = torch.exp(s - lse[..., None]).to(v.dtype).float()
+    dp = torch.matmul(do, vq.transpose(-1, -2))
+    ds = (p * (dp - delta)).to(k.dtype).float()
+    per_group = lambda t: t.reshape(B, Hkv, H // Hkv, Sk, dh).sum(dim=2)
+    dv = per_group(torch.matmul(p.transpose(-1, -2), do))
+    dk = per_group(torch.matmul(ds.transpose(-1, -2), qs))
+    dq = torch.matmul(ds, kq) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssd_scan_ref(x, a_log, b, c, dt):

@@ -1,15 +1,21 @@
 """End-to-end training driver (the reference's ``repro.launch.train``):
 token pipeline -> train step -> AdamW -> checkpoint/restart, on one
-device.  Example (CPU, reduced config):
+device, for every ported arch (the dense family and mamba2).  Examples
+(CPU, reduced configs):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch mamba2-130m --reduced --steps 30 --fail-at 15
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch gemma-7b --reduced --steps 30 --fail-at 15
 
 The training state is the reference's: ``(params, OptState)`` with the
 parameters in the reference's pytree layout (``models.param_tree``), so a
 checkpoint has the reference's leaf paths.  Each step copies the state's
-parameters into the model, takes the loss and its gradient (the SSD
-scan's forward and backward kernels on the card), and applies AdamW.
+parameters into the model, takes the loss and its gradient (on the card
+the flash-attention or SSD forward and gradient kernels), and applies
+AdamW.  ``--layers`` cuts a single-segment config to its first N blocks
+at its published width (the reference trains the config as it is; a
+model too deep for one card's memory trains cut).
 The run is deterministic: PyTorch's deterministic algorithms are on for
 its length (the embedding gradient's scatter-add is otherwise a float
 atomic on the card), so a replay after an injected failure repeats the
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import tempfile
 import time
@@ -49,6 +56,13 @@ from repro_torch.runtime import FaultConfig, LoopStats, run
 # device work, and a program that runs other GPU work first (chip_smoke.py)
 # sets it at its start.
 CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+# The caching allocator's expandable segments: a functional AdamW step
+# allocates float32 temporaries of every leaf's size, which otherwise
+# strand reserved blocks that a later leaf cannot use (9.9 GB of the
+# card, and an out-of-memory failure, at gemma-7b's published width cut
+# to 6 blocks).  PyTorch reads it at the process's first CUDA allocation:
+# ``main`` sets it before any device work, and chip_smoke.py at its start.
+CUDA_ALLOC_CONF = "expandable_segments:True"
 
 
 @contextlib.contextmanager
@@ -84,10 +98,29 @@ def make_step(model, opt_cfg: optim.AdamWConfig):
     return step_fn
 
 
+def cut_depth(cfg, layers: int | None):
+    """``cfg`` with its one segment cut to ``layers`` blocks (``None``:
+    as it is)."""
+    if layers is None:
+        return cfg
+    if len(cfg.segments) != 1 or not 0 < layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name}: --layers {layers} needs one segment "
+                         f"of at least that many blocks")
+    (seg,) = cfg.segments
+    unit = len(seg.kinds)
+    if layers % unit:
+        raise ValueError(f"{cfg.name}: --layers must be a multiple of its "
+                         f"unit of {unit} blocks")
+    return dataclasses.replace(cfg, segments=(dataclasses.replace(
+        seg, repeat=layers // unit),))
+
+
 def main(argv=None) -> LoopStats:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mamba2-130m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the config cut to its first N blocks")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
@@ -103,8 +136,9 @@ def main(argv=None) -> LoopStats:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", CUDA_ALLOC_CONF)
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, reduced=args.reduced)
+    cfg = cut_depth(get_config(args.arch, reduced=args.reduced), args.layers)
     check_trainable(cfg)
     opt_cfg = optim.AdamWConfig(lr=args.lr, warmup_steps=10,
                                 total_steps=args.steps)

@@ -1,9 +1,9 @@
 """The model zoo of the retrieval service's embedder, as far as ported:
 the dense attention family (config, layers, attention, transformer) and
-the Mamba-2 family, which also trains (``loss_fn``)."""
+the Mamba-2 family; both train (``loss_fn``)."""
 from repro_torch.models.config import (BlockKind, MLAConfig, ModelConfig,
                                        MoEConfig, RGLRUConfig, SSMConfig,
-                                       Segment, dense_stack)
+                                       Segment, count_params, dense_stack)
 from repro_torch.models.transformer import (Transformer, check_trainable,
                                             forward, hidden_states,
                                             init_params, load_param_tree,
@@ -12,7 +12,7 @@ from repro_torch.models.transformer import (Transformer, check_trainable,
 
 __all__ = [
     "BlockKind", "MLAConfig", "ModelConfig", "MoEConfig", "RGLRUConfig",
-    "SSMConfig", "Segment", "dense_stack", "Transformer", "forward",
-    "hidden_states", "init_params", "loss_fn", "check_trainable",
+    "SSMConfig", "Segment", "count_params", "dense_stack", "Transformer",
+    "forward", "hidden_states", "init_params", "loss_fn", "check_trainable",
     "param_tree", "load_param_tree", "value_and_grad",
 ]

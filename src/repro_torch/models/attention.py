@@ -1,26 +1,30 @@
 """Full-sequence GQA/MQA attention.
 
 ``sdpa`` is the port's one score path: the hand-written flash kernel on
-the card (``kernels/ops.flash_attention``), its plain version on the CPU.
-The reference chooses among an einsum, a chunked scan and its TPU kernel
-by shape and by a ``use_kernel`` switch; all compute the same function,
-and the port has no switch.  The decode path with its KV cache, the
-sliding window, MLA and the chunked path are later parts of the port.
+the card (``kernels/ops.flash_attention``), its plain version on the CPU,
+differentiable through the gradient kernel (``models/flash_xla.py``).
+The reference chooses among an einsum, a chunked scan, its custom-VJP
+flash and its TPU kernel by shape and by a ``use_kernel`` switch; all
+compute the same function, and the port has no switch.  The reference's
+einsum and chunked paths exist to carry ``q_offset`` and ``window``,
+which no ported block uses: they come with the decode path and its KV
+cache (ROADMAP Queue 1 item 11.3) and with the sliding window and MLA
+(item 11.4).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.flash_xla import flash_attention_xla
 from repro_torch.models.layers import apply_rope, he_init_, param
 
 
 def sdpa(q, k, v, *, causal: bool = True):
     """Scaled dot-product attention, q (B, H, Sq, hd) against k, v
-    (B, Hkv, Sk, hd)."""
-    return ops.flash_attention(q, k, v, causal=causal)
+    (B, Hkv, Sk, hd); differentiable in q, k and v."""
+    return flash_attention_xla(q, k, v, causal)
 
 
 class Attention(nn.Module):

@@ -129,3 +129,12 @@ class ModelConfig:
 def dense_stack(n_layers: int, kind: BlockKind = BlockKind.ATTN,
                 moe: bool = False) -> tuple:
     return (Segment(kinds=(kind,), repeat=n_layers, moe=moe),)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Parameter count of a ported config (used for 6ND model FLOPs and
+    reports), counted from the port's modules built on the meta device:
+    shapes only, nothing is allocated."""
+    from repro_torch.models.transformer import Transformer  # no cycle
+    model = Transformer(cfg, device="meta")
+    return sum(p.numel() for p in model.parameters())

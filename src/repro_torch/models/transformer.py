@@ -16,8 +16,9 @@ item 11.3).
 Training: ``loss_fn`` is the reference's, through a differentiable
 forward with the reference's per-block rematerialisation (its
 ``jax.checkpoint`` of each scanned unit, here ``torch.utils.checkpoint``,
-non-reentrant).  Only the SSM family trains (``check_trainable``): the
-flash kernel has no backward kernel yet.  ``param_tree`` lays the
+non-reentrant).  Every ported config trains: the dense family through
+the flash kernel and its gradient kernel, the SSM family through the SSD
+scan and its gradient kernel.  ``param_tree`` lays the
 parameters (or gradients) out as the reference's pytree, each segment's
 leaves stacked over its repeats, so the optimizer state and the training
 checkpoints have the reference's leaf paths; ``load_param_tree`` is the
@@ -50,15 +51,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` trains on the port: every block an SSM block
-    (attention has no backward kernel yet)."""
+    """Raise unless ``cfg`` trains on the port: every config that
+    ``check_supported`` admits does (ATTN blocks through the flash
+    gradient kernel, SSM blocks through the SSD one)."""
     check_supported(cfg)
-    kinds = {k for seg in cfg.segments for k in seg.kinds}
-    if kinds != {BlockKind.SSM}:
-        raise NotImplementedError(
-            f"{cfg.name}: training is ported for the SSM family only; "
-            f"dense-family training (a flash-attention backward kernel) is "
-            f"ROADMAP Queue 1 item 12")
 
 
 class Block(nn.Module):

@@ -11,7 +11,9 @@ each dot with fused multiply-adds, the plain versions with separate
 multiplies and adds), and the CSR gather BITWISE equal to the full-scan
 kernel at every width; flash attention -- rtol = atol = 2e-5 in float32
 (the reference's own kernel tolerance, ``tests/test_kernels.py``) and
-0.05 in bf16 (an output rounded to bf16 may land one bf16 step apart);
+0.05 in bf16 (an output rounded to bf16 may land one bf16 step apart),
+its lse 1e-4, and its gradient within 1e-4 (float32) or 1e-2 (bf16) of
+each output's largest magnitude;
 the SSD scan -- the chunked kernel against the sequential plain version
 at rtol = atol = 2e-4 in float32 (the reference's chunked-vs-sequential
 tolerance) and 0.05 in bf16; the hash -- BITWISE: the kernel, its
@@ -823,13 +825,248 @@ def test_reduced_training_step_on_the_card_equals_the_cpu():
 
 
 @pytest.mark.gpu
-def test_flash_attention_refuses_a_gradient_on_the_card():
+def test_flash_attention_gradient_on_the_card_is_the_kernels():
+    """The refusal this test held is gone: ``ops.flash_attention`` under
+    autograd launches the forward kernel (with its lse) and, in backward,
+    the gradient kernel, and its gradients are the kernel's bits; under
+    ``no_grad`` it is the plain forward launch."""
     dev = _cuda()
-    q = torch.randn((1, 2, 8, 16), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ops.flash_attention(q, q, q)
+    q, k, v = _attn(5, 2, 4, 2, 96, 96, 64, torch.bfloat16, dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)
+                       ).to(dev, torch.bfloat16)
+    before = (kfa.flash_attention_cuda.launches,
+              kfa.flash_attention_bwd_cuda.launches)
+    o = ops.flash_attention(*leaves)
+    assert o.grad_fn is not None
+    o.backward(dout)
+    torch.cuda.synchronize()
+    assert (kfa.flash_attention_cuda.launches,
+            kfa.flash_attention_bwd_cuda.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    o2, lse = kfa.flash_attention_cuda(q, k, v, return_lse=True)
+    assert torch.equal(o.detach(), o2)
+    want = kfa.flash_attention_bwd_cuda(q, k, v, o2, lse, dout)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
     with torch.no_grad():
-        assert ops.flash_attention(q, q, q).shape == q.shape
+        assert ops.flash_attention(*leaves).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# flash-attention gradient: the kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _bwd_case(seed, B, H, Hkv, Sq, Sk, dh, dtype, dev, causal):
+    """q, k, v, the plain forward's o and lse, and a seeded dout."""
+    q, k, v = _attn(seed, B, H, Hkv, Sq, Sk, dh, dtype, dev)
+    o, lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        np.float32)).to(dev, dtype)
+    return q, k, v, o, lse, dout
+
+
+def _bwd_close(got, want):
+    """Each gradient within a tolerance of the largest magnitude of the
+    three: 1e-4 in float32 (float32 sums in another order), 1e-2 in bf16
+    (both round P and dS to bf16, and a value next to a rounding boundary
+    may round the other way on one side; the outputs are bf16, a step of
+    2**-8).  The largest of the three, not each one's own: with a single
+    key dq and dk are 0 in exact arithmetic (dP - delta cancels), and
+    both sides give rounding noise some 1e-8 of dv."""
+    scale = max(float(w.float().abs().max()) for w in want)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = 1e-4 if w.dtype == torch.float32 else 1e-2
+        g, w = g.float().cpu(), w.float().cpu()
+        assert torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=tol,
+                                   atol=tol * scale, err_msg=name)
+
+
+def _bwd_design(dtype):
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 100, 300])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 96, 128, 256])
+def test_flash_bwd_kernel_matches_plain_version(dh, dtype, causal, S):
+    dev = _cuda()
+    a = _bwd_case(dh + S, 2, 4, 2, S, S, dh, dtype, dev, causal)
+    want = ref.flash_attention_bwd_ref(*a, causal=causal)
+    before = dict(kfa.flash_attention_bwd_cuda.launches_by_design)
+    got = kfa.flash_attention_bwd_cuda(*a, causal=causal)
+    torch.cuda.synchronize()
+    after = kfa.flash_attention_bwd_cuda.launches_by_design
+    design = _bwd_design(dtype)
+    assert after[design] == before[design] + 1
+    _bwd_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv", [(8, 1), (6, 3)])
+def test_flash_bwd_kernel_gqa_unequal_lengths_and_strided_views(H, Hkv,
+                                                                dtype):
+    """MQA/GQA (dk, dv summed over each kv head's group); non-causal
+    Sq != Sk, ragged against every tile; q, k, v, o and dout as views of
+    (B, S, heads, dh) tensors, as the attention layer and autograd pass
+    them; and a dout whose head dim is not unit-stride (copied once)."""
+    dev = _cuda()
+    a = _bwd_case(H, 2, H, Hkv, 70, 130, 64, dtype, dev, False)
+    want = ref.flash_attention_bwd_ref(*a, causal=False)
+    view = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)
+    q, k, v, o, lse, dout = a
+    got = kfa.flash_attention_bwd_cuda(view(q), view(k), view(v), view(o),
+                                       lse, view(dout), causal=False)
+    torch.cuda.synchronize()
+    _bwd_close(got, want)
+    odd = dout.transpose(2, 3).contiguous().transpose(2, 3)
+    assert odd.stride(3) != 1
+    _bwd_close(kfa.flash_attention_bwd_cuda(q, k, v, o, lse, odd,
+                                            causal=False), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_launches_are_bitwise_equal(dtype):
+    """No atomics, every sum in a fixed order: two launches give the same
+    bits (the training replay's premise), at gemma-7b's head width with
+    GQA and causal rows."""
+    dev = _cuda()
+    a = _bwd_case(9, 2, 8, 2, 333, 333, 256, dtype, dev, True)
+    one = kfa.flash_attention_bwd_cuda(*a)
+    two = kfa.flash_attention_bwd_cuda(*a)
+    torch.cuda.synchronize()
+    for g1, g2 in zip(one, two):
+        assert torch.equal(g1, g2)
+    _bwd_close(one, ref.flash_attention_bwd_ref(*a))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_tensor_core_design_at_the_training_shape():
+    """gemma-7b's layer at the train path's shape (2 x 1,024 tokens, 16
+    heads of 256, causal), q, k, v and dout as the views training hands
+    over: the tensor-core design, within the bf16 tolerance."""
+    dev = _cuda()
+    B, H, S, dh = 2, 16, 1024, 256
+    rng = np.random.default_rng(4)
+    mk = lambda sc: torch.from_numpy((rng.standard_normal(
+        (B, S, H, dh)) * sc).astype(np.float32)).to(
+            dev, torch.bfloat16).transpose(1, 2)
+    q, k, v, dout = mk(0.5), mk(0.5), mk(0.5), mk(1.0)
+    o, lse = kfa.flash_attention_cuda(q, k, v, return_lse=True)
+    before = dict(kfa.flash_attention_bwd_cuda.launches_by_design)
+    got = kfa.flash_attention_bwd_cuda(q, k, v, o, lse, dout)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_bwd_cuda.launches_by_design[
+        "tensor_core"] == before["tensor_core"] + 1
+    _bwd_close(got, ref.flash_attention_bwd_ref(q, k, v, o, lse, dout))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,causal,Sq,Sk", [
+    (32, True, 100, 100), (64, False, 70, 130), (96, True, 300, 300),
+    (128, False, 1, 257), (256, True, 333, 333), (36, True, 77, 77)])
+def test_flash_lse_does_not_change_the_output(dh, causal, Sq, Sk, dtype):
+    """The forward's lse output: the output bitwise the same with and
+    without it, the lse within rtol = atol = 1e-4 of the plain one (the
+    same float32 scores, summed in another order), in both designs."""
+    dev = _cuda()
+    q, k, v = _attn(dh + Sq, 2, 4, 2, Sq, Sk, dh, dtype, dev)
+    plain = kfa.flash_attention_cuda(q, k, v, causal=causal)
+    o, lse = kfa.flash_attention_cuda(q, k, v, causal=causal,
+                                      return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, plain)
+    _, want = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+    assert lse.shape == (2, 4, Sq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_plan_mirrors_the_kernels_shared_memory():
+    _cuda()
+    lib = kfa._bwd_lib()
+    for dh in range(4, kfa.MAX_DH + 1, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            p = kfa.bwd_plan(dtype, dh, 128, 128)
+            design = int(p.design == "tensor_core")
+            assert lib.flash_attention_bwd_smem_bytes(design, 0, dh) == \
+                p.dkdv_smem_bytes, (dh, p)
+            assert lib.flash_attention_bwd_smem_bytes(design, 1, dh) == \
+                p.dq_smem_bytes, (dh, p)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernel_rejects_bad_inputs():
+    dev = _cuda()
+    a = _bwd_case(0, 1, 2, 2, 16, 24, 64, torch.float32, dev, False)
+    q, k, v, o, lse, dout = a
+    with pytest.raises(ValueError, match="causal"):
+        kfa.flash_attention_bwd_cuda(*a, causal=True)
+    with pytest.raises(ValueError, match="lse"):
+        kfa.flash_attention_bwd_cuda(q, k, v, o, lse[:, :, :3], dout,
+                                     causal=False)
+    with pytest.raises(ValueError, match="dout"):
+        kfa.flash_attention_bwd_cuda(q, k, v, o, lse, dout.bfloat16(),
+                                     causal=False)
+
+
+@pytest.mark.gpu
+def test_reduced_dense_training_step_on_the_card_equals_the_cpu():
+    """Reduced gemma-7b (float32, heads of 48: the CUDA-core designs):
+    the loss and every gradient leaf on the card (the flash forward and
+    gradient kernels) against the CPU (their plain versions) at the CPU
+    tests' tolerances (loss rtol 1e-5, gradients rtol = atol = 1e-4),
+    then one AdamW step's parameters; two card steps bitwise alike."""
+    dev = _cuda()
+    from repro_torch import optim
+    from repro_torch.tree import leaves_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import (Transformer, init_params,
+                                    load_param_tree, param_tree,
+                                    value_and_grad)
+    cfg = get_config("gemma-7b", reduced=True)
+    cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    card = Transformer(cfg, dev)
+    load_param_tree(card, param_tree(cpu))
+    tokens, labels = next(TokenPipeline(cfg.vocab, 2, 100, seed=1,
+                                        device="cpu"))
+    before = (kfa.flash_attention_cuda.launches,
+              kfa.flash_attention_bwd_cuda.launches)
+    with train.deterministic():
+        lg, gg = value_and_grad(card, tokens.to(dev), labels.to(dev))
+        torch.cuda.synchronize()
+        assert (kfa.flash_attention_cuda.launches - before[0],
+                kfa.flash_attention_bwd_cuda.launches - before[1]) == (
+            2 * cfg.n_layers, cfg.n_layers)
+        lc, gc = value_and_grad(cpu, tokens, labels)
+        np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+        for (p, a), b in zip(zip(*leaves_with_paths(gg)),
+                             leaves_with_paths(gc)[1]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=p)
+        opt = optim.AdamWConfig(warmup_steps=2, total_steps=4)
+        state = lambda m: (param_tree(m), optim.init(param_tree(m)))
+        on_card = [train.make_step(card, opt)(state(card), (
+            tokens.to(dev), labels.to(dev)))[0][0] for _ in range(2)]
+        on_cpu = train.make_step(cpu, opt)(state(cpu), (tokens, labels))[0][0]
+    for a, b, c in zip(leaves_with_paths(on_card[0])[1],
+                       leaves_with_paths(on_card[1])[1],
+                       leaves_with_paths(on_cpu)[1]):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,188 @@
+"""The flash-attention gradient on the CPU: the port's plain backward
+(``ref.flash_attention_bwd_ref``, what ``csrc/flash_attention_bwd.cu``
+computes) and its plain log-sum-exp against ``jax.vjp`` of the
+reference's custom VJP (``repro.models.flash_xla.flash_attention_xla``)
+and against torch autograd of the plain forward; ``ops.flash_attention``
+under autograd (on CPU tensors its backward is the plain version); and
+the gradient's launch plan.
+
+Shapes: the reference's own (``tests/test_flash_xla.py``): causal MHA,
+GQA with Sk = 2,500 and no mask, causal MQA.  Tolerances: float32
+rtol = atol = 1e-4 (the same float32 function summed in other orders);
+bf16 2e-2 (both round P and dS to bf16 at the same points, but a value
+that lands next to a rounding boundary may round the other way on one
+side, and each output is rounded to bf16: a few bf16 steps of the
+gradients' magnitude).
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import flash_xla as jflash  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.models.attention import Attention  # noqa: E402
+from repro_torch.models.flash_xla import flash_attention_xla  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from test_torch_cuda import one_torch_thread  # noqa: E402,F401
+
+SHAPES = {  # B, H, Hkv, Sq, Sk, dh, causal
+    "causal": (1, 4, 4, 256, 256, 32, True),
+    "gqa_sk2500": (2, 4, 2, 128, 2500, 32, False),
+    "mqa": (1, 8, 1, 512, 512, 64, True),
+}
+TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SMEM = 232_448
+
+
+@functools.lru_cache(maxsize=None)
+def _case(name, dtype):
+    """Seeded numpy inputs (q, k, v, dout), rounded to ``dtype``, and the
+    reference's (out, lse, dq, dk, dv) for them, as float32 numpy; one
+    reference run per case."""
+    B, H, Hkv, Sq, Sk, dh, causal = SHAPES[name]
+    rng = np.random.default_rng(Sq + Sk + dh)
+    mk = lambda *s, sc=0.5: (rng.standard_normal(s) * sc).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    q, k, v = (jnp.asarray(a, jdt) for a in (
+        mk(B, H, Sq, dh), mk(B, Hkv, Sk, dh), mk(B, Hkv, Sk, dh)))
+    dout = jnp.asarray(mk(B, H, Sq, dh, sc=1.0), jdt)
+    out, vjp = jax.vjp(lambda *a: jflash.flash_attention_xla(*a, causal),
+                       q, k, v)
+    _, (_, _, _, _, lse) = jflash._fwd(q, k, v, causal, None)
+    grads = vjp(dout)
+    f32 = lambda a: np.array(jnp.asarray(a, jnp.float32))
+    inputs = tuple(f32(a) for a in (q, k, v, dout))
+    want = (f32(out), f32(lse).reshape(B, H, Sq)) + tuple(map(f32, grads))
+    return inputs, want
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _close(got, want, dtype, what):
+    np.testing.assert_allclose(got.float().numpy(), want, err_msg=what,
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_plain_backward_and_lse_match_the_reference_vjp(name, dtype):
+    (q, k, v, dout), (out, lse, dq, dk, dv) = _case(name, dtype)
+    causal = SHAPES[name][-1]
+    q, k, v, dout = (_torch(a, dtype) for a in (q, k, v, dout))
+    o, got_lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+    assert got_lse.dtype == torch.float32
+    _close(o, out, dtype, "out")
+    _close(got_lse, lse, "float32", "lse")
+    grads = ref.flash_attention_bwd_ref(q, k, v, o, got_lse, dout,
+                                        causal=causal)
+    for g, w, what, t in zip(grads, (dq, dk, dv), ("dq", "dk", "dv"),
+                             (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close(g, w, dtype, what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_plain_backward_matches_autograd_of_the_plain_forward(name, dtype):
+    """torch autograd through ``attention_ref`` (its softmax's own
+    backward, no rounding of P or dS) at the same tolerances."""
+    (q, k, v, dout), _ = _case(name, dtype)
+    causal = SHAPES[name][-1]
+    leaves = [_torch(a, dtype).requires_grad_() for a in (q, k, v)]
+    dout = _torch(dout, dtype)
+    o = ref.attention_ref(*leaves, causal=causal)
+    o.backward(dout)
+    with torch.no_grad():
+        o, lse = ref.attention_ref(*leaves, causal=causal, return_lse=True)
+        grads = ref.flash_attention_bwd_ref(*leaves, o, lse, dout,
+                                            causal=causal)
+    for g, t, what in zip(grads, leaves, ("dq", "dk", "dv")):
+        _close(g, t.grad.float().numpy(), dtype, what)
+
+
+def test_ops_flash_attention_gradient_is_the_plain_backward():
+    """On CPU tensors the autograd function's forward is attention_ref
+    with its lse and its backward flash_attention_bwd_ref, bitwise, with
+    no kernel launch counted; the reference's name for it,
+    ``models.flash_xla.flash_attention_xla``, is the same call; without a
+    gradient there is no graph."""
+    (q, k, v, dout), _ = _case("gqa_sk2500", "float32")
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    dout = torch.from_numpy(dout)
+    before = (kfa.flash_attention_cuda.launches,
+              kfa.flash_attention_bwd_cuda.launches)
+    o = ops.flash_attention(*leaves, causal=False)
+    assert o.grad_fn is not None
+    o.backward(dout)
+    assert (kfa.flash_attention_cuda.launches,
+            kfa.flash_attention_bwd_cuda.launches) == before
+    plain = [torch.from_numpy(a) for a in (q, k, v)]
+    po, lse = ref.attention_ref(*plain, causal=False, return_lse=True)
+    assert torch.equal(o.detach(), po)
+    want = ref.flash_attention_bwd_ref(*plain, po, lse, dout, causal=False)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+    again = [t.detach().clone().requires_grad_() for t in leaves]
+    flash_attention_xla(*again, False).backward(dout)
+    for t, w in zip(again, want):
+        assert torch.equal(t.grad, w)
+    with torch.no_grad():
+        assert ops.flash_attention(*leaves, causal=False).grad_fn is None
+
+
+def test_bwd_plan_sizes():
+    """Every head width either design takes gets a plan within a block's
+    shared memory, bf16 with dh % 16 == 0 on tensor cores (two blocks an
+    SM for each kernel), float32 on CUDA cores; what neither takes is
+    refused."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for dh in range(4, kfa.MAX_DH + 1, 4):
+            p = kfa.bwd_plan(dtype, dh, 1024, 1024,
+                             strides=[dh * 8, dh, dh] * 5)
+            tc = dtype == torch.bfloat16 and dh % 16 == 0
+            assert p.design == ("tensor_core" if tc else "cuda_core"), dh
+            for smem in (p.dkdv_smem_bytes, p.dq_smem_bytes):
+                assert 0 < smem <= SMEM, (dh, p)
+                if tc:
+                    assert 2 * (smem + 1024) <= 233_472, (dh, p)
+    p = kfa.bwd_plan(torch.bfloat16, 256, 1024, 1024)
+    assert p == kfa.BwdPlan("tensor_core", 32, 64, 64, 32, 111_104,
+                            101_376)
+    assert kfa.bwd_plan(torch.bfloat16, 256, 8, 8, strides=[256, 256, 255],
+                        ).design == "cuda_core"
+    assert kfa.bwd_plan(torch.bfloat16, 64, 8, 8,
+                        aligned=False).design == "cuda_core"
+    for dh in (0, 2, 130, 260):
+        with pytest.raises(ValueError, match="head width"):
+            kfa.bwd_plan(torch.bfloat16, dh, 8, 8)
+    with pytest.raises(ValueError, match="too long"):
+        kfa.bwd_plan(torch.bfloat16, 64, 8, 32 * 65536)
+
+
+def test_gemma_training_inputs_take_the_tensor_core_backward():
+    """gemma-7b at its published width (meta device, nothing allocated):
+    q, k, v as the attention layer passes them (views of the
+    projections), o as the forward allocates it and dout in the layout
+    autograd hands back through the output's transpose and reshape take
+    the tensor-core gradient."""
+    cfg = get_config("gemma-7b")
+    attn = Attention(cfg, device="meta")
+    B, S, H, hd = 2, 1024, cfg.n_heads, cfg.hd
+    x = torch.empty((B, S, cfg.d_model), dtype=cfg.cdtype, device="meta")
+    q, k, v = ((x @ w).view(B, S, H, hd).transpose(1, 2)
+               for w in (attn.wq, attn.wk, attn.wv))
+    o = torch.empty_like(q)
+    dout = torch.empty((B, S, H * hd), dtype=q.dtype,
+                       device="meta").view(B, S, H, hd).transpose(1, 2)
+    strides = [s for t in (q, k, v, o, dout) for s in t.stride()[:3]]
+    assert kfa.bwd_plan(q.dtype, hd, S, S, strides=strides).design == \
+        "tensor_core"

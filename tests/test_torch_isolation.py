@@ -213,7 +213,6 @@ NOT_PORTED = {
     "runtime": {},
     "models": {
         "prefill": "11.3", "decode_step": "11.3", "init_cache": "11.3",
-        "count_params": "11.4",
     },
 }
 

@@ -216,6 +216,20 @@ def test_gemma_7b_config_is_the_published_width():
             assert mine.vocab_padded == theirs.vocab_padded
 
 
+@pytest.mark.parametrize("arch", DENSE_ARCHS + ["mamba2-130m"])
+def test_count_params_equals_the_reference(arch):
+    """``count_params`` (the port's modules on the meta device: nothing
+    allocated) is the reference's count (``jax.eval_shape`` of its
+    ``init_params``), published and reduced; gemma-7b's is 8.54 B."""
+    from repro.models import count_params as jcount_params
+    from repro_torch.models import count_params
+    for reduced in (False, True):
+        assert count_params(get_config(arch, reduced=reduced)) == \
+            jcount_params(jget_config(arch, reduced=reduced))
+    if arch == "gemma-7b":
+        assert count_params(get_config(arch)) == 8_537_680_896
+
+
 @pytest.mark.parametrize("arch,item", [
     ("granite-moe-1b-a400m", "11.4"),
     ("deepseek-v2-lite-16b", "11.4"), ("recurrentgemma-2b", "11.4"),

@@ -16,6 +16,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as kssd  # noqa: E402
 from test_torch_cuda import one_torch_thread  # noqa: E402,F401
@@ -99,10 +100,23 @@ def test_ssd_scan_op_differentiates_through_the_plain_versions():
                                                           dt))))
 
 
-def test_flash_attention_refuses_a_gradient():
-    q = torch.randn((1, 2, 5, 8), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ops.flash_attention(q, q, q)
+def test_flash_attention_takes_a_gradient():
+    """The refusal this test held is gone: with a gradient required,
+    ``ops.flash_attention`` runs its autograd function (on CPU tensors
+    the plain forward and backward, no launch), as ``ops.ssd_scan`` does;
+    under ``no_grad`` it builds no graph."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 2, 5, 8), generator=g, requires_grad=True)
+    dout = torch.randn((1, 2, 5, 8), generator=g)
+    before = kfa.flash_attention_bwd_cuda.launches
+    o = ops.flash_attention(q, q, q)
+    assert o.grad_fn is not None
+    o.backward(dout)
+    assert kfa.flash_attention_bwd_cuda.launches == before
+    x = q.detach()
+    po, lse = ref.attention_ref(x, x, x, return_lse=True)
+    dq, dk, dv = ref.flash_attention_bwd_ref(x, x, x, po, lse, dout)
+    assert torch.equal(q.grad, dq + dk + dv)
     with torch.no_grad():
         assert ops.flash_attention(q, q, q).grad_fn is None
 

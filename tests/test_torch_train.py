@@ -1,15 +1,18 @@
 """The port's training path against the JAX reference, on the CPU.
 
-Reduced mamba2 (float32, 2 layers) with the reference's weights carried
+Reduced mamba2 and, for the dense family, reduced gemma-7b (GeGLU, tied
+head, softcap) and reduced mistral-nemo-12b (GQA 4/2, SwiGLU, untied
+head), each float32 with 2 layers, with the reference's weights carried
 across by ``convert.py``: ``loss_fn`` and every gradient leaf against
 ``jax.value_and_grad(repro.models.loss_fn)`` (the reference's plain scan
-differentiated by JAX; the port's plain forward and reverse recurrence),
-five optimizer steps' losses against the reference's train step, the
-fault-tolerant loop's restart trajectory bitwise an uninterrupted run,
-and a training checkpoint written by each side and restored by the
-other.  Tolerances: loss rtol 1e-5, gradients rtol = atol = 1e-4 (the
-same float32 functions, summed in other orders), five steps' losses rtol
-1e-4; the restart and the checkpoints BITWISE.
+or attention differentiated by JAX; the port's plain forward and its
+plain SSD recurrence or flash backward), five optimizer steps' losses
+against the reference's train step, the fault-tolerant loop's restart
+trajectory bitwise an uninterrupted run, a training checkpoint written
+by each side and restored by the other, and the training CLI surviving
+an injected failure.  Tolerances: loss rtol 1e-5, gradients rtol = atol
+= 1e-4 (the same float32 functions, summed in other orders), five
+steps' losses rtol 1e-4; the restart and the checkpoints BITWISE.
 """
 import json
 import os
@@ -42,17 +45,29 @@ from test_torch_cuda import one_torch_thread  # noqa: E402,F401
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 ARCH = "mamba2-130m"
+DENSE_ARCHS = ["gemma-7b", "mistral-nemo-12b"]
+
+
+def _carry(arch):
+    """The reference's reduced weights of ``arch``, in both packages."""
+    jcfg = jget_config(arch, reduced=True)
+    jp = jinit_params(jax.random.PRNGKey(0), jcfg)
+    cfg = get_config(arch, reduced=True)
+    model = convert.model_params_from_arrays(
+        jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jcfg, jp, cfg, model
 
 
 @pytest.fixture(scope="module")
 def carried():
     """The reference's reduced mamba2 weights, in both packages."""
-    jcfg = jget_config(ARCH, reduced=True)
-    jp = jinit_params(jax.random.PRNGKey(0), jcfg)
-    cfg = get_config(ARCH, reduced=True)
-    model = convert.model_params_from_arrays(
-        jax.tree.map(np.asarray, jp), cfg, device="cpu")
-    return jcfg, jp, cfg, model
+    return _carry(ARCH)
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def dense(request):
+    """A reduced dense config's reference weights, in both packages."""
+    return _carry(request.param)
 
 
 def _batch(cfg, seed, B=2, S=24):
@@ -69,6 +84,16 @@ def _by_path(tree):
 
 
 def test_loss_and_every_gradient_leaf_match_the_reference(carried):
+    _check_loss_and_grads(carried)
+
+
+def test_dense_loss_and_every_gradient_leaf_match_the_reference(dense):
+    """The attention blocks' gradient through the flash backward's plain
+    version, the tied head's (gemma) and the untied one's (mistral)."""
+    _check_loss_and_grads(dense)
+
+
+def _check_loss_and_grads(carried):
     jcfg, jp, cfg, model = carried
     tokens, labels = _batch(cfg, 1)
     want_loss, want_grads = jax.value_and_grad(
@@ -93,6 +118,14 @@ def test_parameters_carry_back_to_the_reference_tree(carried):
     """``convert.model_arrays`` is the inverse of
     ``model_params_from_arrays``: the reference's tree, leaf paths and
     bits."""
+    _check_carry_back(carried)
+
+
+def test_dense_parameters_carry_back_to_the_reference_tree(dense):
+    _check_carry_back(dense)
+
+
+def _check_carry_back(carried):
     _, jp, _, model = carried
     got, want = _by_path(convert.model_arrays(model)), _by_path(jp)
     assert got.keys() == want.keys()
@@ -101,6 +134,14 @@ def test_parameters_carry_back_to_the_reference_tree(carried):
 
 
 def test_five_optimizer_steps_match_the_reference(carried):
+    _check_five_steps(carried)
+
+
+def test_dense_five_optimizer_steps_match_the_reference(dense):
+    _check_five_steps(dense)
+
+
+def _check_five_steps(carried):
     jcfg, jp, cfg, _ = carried
     opt = dict(lr=3e-3, warmup_steps=2, total_steps=5)
     jopt = joptim.AdamWConfig(**opt)
@@ -207,6 +248,17 @@ def test_training_checkpoints_cross_restore(carried, tmp_path):
     port's state (a NamedTuple tree, which the port's checkpoint could not
     rebuild before) and the port's into the reference's: the same leaf
     paths, every leaf bitwise."""
+    _check_cross_restore(carried, tmp_path)
+
+
+@pytest.mark.parametrize("dense", ["gemma-7b"], indirect=True)
+def test_dense_training_checkpoints_cross_restore(dense, tmp_path):
+    """One dense config suffices: the leaf paths are the attention
+    block's; the arithmetic is the other tests'."""
+    _check_cross_restore(dense, tmp_path)
+
+
+def _check_cross_restore(carried, tmp_path):
     jstate, tstate = _trained_state(carried, tmp_path)
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
     jsave(jdir, 1, jstate, extra={"pipeline": {"seed": 0, "step": 1}})
@@ -240,17 +292,33 @@ def test_reference_opt_state_carries_into_the_port(carried, tmp_path):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_dense_configs_do_not_train_yet():
+def test_dense_configs_train(capsys):
+    """What replaced the refusal this test held (``check_trainable``
+    refused ATTN blocks before the flash backward): every ported arch's
+    config trains, published and reduced; reduced gemma-7b's loss has a
+    gradient in every parameter; and the training CLI trains it through
+    an injected failure, cut to one block by ``--layers`` (the train
+    path's depth cut) and at its two."""
+    for arch in ("gemma-7b", "codeqwen1.5-7b", "phi3-mini-3.8b",
+                 "mistral-nemo-12b", "mamba2-130m"):
+        for reduced in (False, True):
+            check_trainable(get_config(arch, reduced=reduced))
     cfg = get_config("gemma-7b", reduced=True)
     model = init_params(cfg, generator=torch.Generator().manual_seed(0),
                         device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        loss_fn(model, tokens, tokens)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train.main(["--device", "cpu", "--arch", "gemma-7b", "--reduced"])
+    tokens = torch.arange(8, dtype=torch.int64).reshape(1, 8)
+    loss, grads = value_and_grad(model, tokens, tokens)
+    assert np.isfinite(float(loss))
+    assert all(bool(g.abs().sum() > 0) for g in leaves(grads))
+    for layers in (["--layers", "1"], []):
+        stats = train.main(["--device", "cpu", "--arch", "gemma-7b",
+                            "--reduced", "--steps", "10", "--batch", "2",
+                            "--seq", "16", "--lr", "3e-3", "--ckpt-every",
+                            "4", "--fail-at", "6", *layers])
+        assert stats.restarts == 1 and stats.steps_run == 12
+    assert "arch=gemma-7b-reduced" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="layers"):
+        train.cut_depth(cfg, 3)
 
 
 def test_train_cli_survives_an_injected_failure(capsys):
