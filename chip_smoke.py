@@ -79,7 +79,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                alike (PyTorch's deterministic algorithms on) and the
                loss must fall.  Each step launches the SSD kernel twice
                a layer (the forward and its rematerialisation) and the
-               SSD gradient kernel once.  Then the step's ms (CUDA
+               SSD gradient kernel once, every launch of both in its
+               "tensor_core" design.  Then the step's ms (CUDA
                events), tokens/s and peak memory, a traced step, bf16
                gradients against a float32 step (at 2 blocks of the
                published width: at 24 the random-init gradient is chaotic
@@ -88,8 +89,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                loss and gradients at 24 blocks against the CPU's plain
                versions on 96 tokens, and the reduced float32 config's
                loss, gradients and one AdamW step on the card against
-               the CPU.  The SSD kernel is also held against its plain
-               version at one layer's inputs of a training step;
+               the CPU.  The SSD kernel and its gradient are held
+               against their plain versions at one layer's inputs of a
+               training step, the gradient also against its own second
+               launch, bitwise;
   train_dense -- after it, gemma-7b at its published width (d_model 3072,
                16 heads of 256, d_ff 24,576, vocab 256,000, tied head,
                softcap 30, bf16) cut to 6 of its 28 blocks (memory),
@@ -111,9 +114,10 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                same with and without its log-sum-exp there.
 
 Each path runs with every launch count set to 0 just before it and read
-just after; the flash and SSD wrappers also count per design, and every
-launch of those two paths must go to their "tensor_core" designs, whose
-SASS must hold tensor-core (HMMA) instructions.  Each kernel is then
+just after; the flash and SSD wrappers (forward and gradient) also count
+per design, and every launch of those paths must go to their
+"tensor_core" designs, whose SASS must hold tensor-core (HMMA)
+instructions.  Each kernel is then
 held against its plain PyTorch version on the inputs its path gave it
 and timed with CUDA events (both gradient kernels also against their own
 second launch, bitwise); the hash kernel BITWISE, at the first call
@@ -259,7 +263,8 @@ def hmma_counts(libs):
     counts = {}
     for name, kernel in (("flash_attention", "flash_attention_tc_kernel"),
                          ("flash_attention_bwd", "_tc_kernel"),
-                         ("ssd_scan", "ssd_scan_tc_kernel")):
+                         ("ssd_scan", "ssd_scan_tc_kernel"),
+                         ("ssd_scan_bwd", "ssd_bwd_tc_")):
         sass = subprocess.run([tool, "--dump-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -1852,12 +1857,14 @@ def train_path(args, captured):
         launches = {"ssd_scan": kssd.ssd_scan_cuda.launches,
                     "ssd_scan_bwd": kssd.ssd_scan_bwd_cuda.launches}
         by_design = dict(kssd.ssd_scan_cuda.launches_by_design)
-        runs[name] = (stats, launches)
+        bwd_design = dict(kssd.ssd_scan_bwd_cuda.launches_by_design)
+        runs[name] = (stats, launches, bwd_design)
         print(f"phase train ({name}): {stats.steps_run} steps, "
               f"{stats.restarts} restarts, {secs:.1f} s with the token "
               f"draws and checkpoints; loss {stats.losses[0]:.4f} -> "
               f"{stats.losses[-1]:.4f}; launches {launches}, forward by "
-              f"design {by_design}; peak device memory "
+              f"design {by_design}, gradient by design {bwd_design}; peak "
+              f"device memory "
               f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.2f} "
               f"GiB above the {held / 2**30:.2f} GiB held before the run")
         n = stats.steps_run
@@ -1869,12 +1876,15 @@ def train_path(args, captured):
         check(by_design["tensor_core"] == launches["ssd_scan"],
               f"every training forward must take the tensor-core design: "
               f"{by_design}")
+        check(bwd_design["tensor_core"] == launches["ssd_scan_bwd"],
+              f"every training gradient must take the tensor-core design: "
+              f"{bwd_design}")
         check(all(math.isfinite(v) for v in stats.losses),
               "non-finite training loss")
         check(np.mean(stats.losses[-5:]) < np.mean(stats.losses[:5]),
               "the loss did not fall")
-    (failed, launches), (clean, _) = (runs["failure at step 20"],
-                                      runs["uninterrupted"])
+    (failed, launches, bwd_design), (clean, _, _) = (
+        runs["failure at step 20"], runs["uninterrupted"])
     want = _replayed(clean.losses, (TRAIN_STEPS // 2,), TRAIN_CKPT_EVERY)
     check(failed.restarts == 1 and failed.losses == want,
           "the run with a failure must repeat the uninterrupted run's loss "
@@ -2012,7 +2022,7 @@ def train_path(args, captured):
               f"{float(lc):.7f}; gradients max |card - CPU| "
               f"{max(errs.values()):.3g} (rtol = atol = 1e-4), one AdamW "
               f"step's parameters within 1e-4")
-    return launches, hash_launches, hcalls, out
+    return launches, bwd_design, hash_launches, hcalls, out
 
 
 def _flatten_pair(a, b):
@@ -2023,7 +2033,7 @@ def _flatten_pair(a, b):
     return pa, va, vb
 
 
-def ssd_bwd_record(a, kw, launches):
+def ssd_bwd_record(a, kw, launches, by_design, hmma):
     """The SSD gradient kernel against its plain version (the reverse
     recurrence over stored states) at one layer's inputs of a training
     step, and against itself: two launches bitwise equal.  No PyTorch call
@@ -2033,6 +2043,12 @@ def ssd_bwd_record(a, kw, launches):
     from repro_torch.kernels import ssd_scan as kssd
     a = tuple(t.detach() for t in a)       # saved by autograd: no graph
     x, a_log, b, c, dt, dy = a
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    p = kssd.bwd_plan(x.dtype, B, S, H, P, N, strides=[
+        *x.stride(), *b.stride(), *c.stride(), *dy.stride()],
+        aligned=all(t.data_ptr() % 16 == 0 for t in (x, b, c, dy)))
+    check(p.design == "tensor_core", f"ssd_scan_bwd plans {p.design}")
     ms, got = timed(lambda: kssd.ssd_scan_bwd_cuda(*a), REPS)
     again = kssd.ssd_scan_bwd_cuda(*a)
     bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
@@ -2054,23 +2070,27 @@ def ssd_bwd_record(a, kw, launches):
         check(torch.allclose(g, w, rtol=tol, atol=tol * scale),
               f"ssd_scan_bwd {name} differs from its plain version by "
               f"{errs[name]} (largest |value| {scale})")
-    B, S, H, P = x.shape
-    G, N = b.shape[2], b.shape[3]
     es = x.element_size()
     nbytes = (3 * B * S * H * P * es + 4 * B * S * G * N * es
               + 2 * B * S * H * 4 + 2 * H * 4)
-    # a chunked backward at the forward kernel's chunk: the transposed
-    # product of each of the forward's four, twice the forward's count
+    # the chunked algorithm's products, each once, at the forward's chunk:
+    # per head the chunk states s and r and the inter-chunk products of
+    # dc, u and db (2 S P N FLOPs each), the scores C B^T and dY X^T and
+    # the intra-chunk products of dc, u and db over the S (Q + 1) / 2
+    # causal pairs of each chunk
     Q = kssd.CHUNK
-    flops = 2.0 * B * H * (4 * S * N * P + S * (Q + 1) * (N + P))
+    flops = float(B * H) * (10 * S * P * N + S * (Q + 1) * (3 * N + 2 * P))
     bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
-    p = kssd.bwd_plan(B, S, H, P, N)
-    print(f"ssd_scan_bwd: x {tuple(x.shape)} {x.dtype}, B/C "
-          f"{tuple(b.shape)}, {p.blocks} state blocks, workspace "
+    bytes_ms, flops_ms = nbytes / PEAK_BYTES * 1e3, flops / \
+        PEAK_BF16_FLOPS * 1e3
+    print(f"ssd_scan_bwd ({p.design}, {p.blocks} chunk blocks): x "
+          f"{tuple(x.shape)} {x.dtype}, B/C {tuple(b.shape)}, workspace "
           f"{p.work_floats * 4 / 1e6:.0f} MB: {ms:.4f} ms (plain "
-          f"{plain_ms:.1f} ms, bound {bound:.4f} ms: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP), max |err| {errs}, over the largest "
-          f"|value| {rel}, two launches bitwise equal")
+          f"{plain_ms:.1f} ms, bound {bound:.4f} ms: {nbytes / 1e6:.1f} MB "
+          f"take {bytes_ms:.4f} ms, {flops / 1e9:.2f} GFLOP "
+          f"{flops_ms:.4f} ms), max |err| {errs}, over the largest "
+          f"|value| {rel}, two launches bitwise equal; launches by design "
+          f"{by_design}")
     return {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
@@ -2080,9 +2100,12 @@ def ssd_bwd_record(a, kw, launches):
         "launches": launches, "max_abs_err": max(errs.values()),
         "max_abs_err_by_output": errs, "max_rel_err_by_output": rel,
         "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "bound_ms": bound, "bound_by": by, "bound_bytes_ms": bytes_ms,
+        "bound_operations_ms": flops_ms, "library_ms": None,
         "library": "none, no PyTorch call computes it",
-        "bitwise_repeat": bitwise, "workspace_bytes": p.work_floats * 4}
+        "design": p.design, "launches_by_design": by_design,
+        "sass_hmma": hmma, "bitwise_repeat": bitwise,
+        "workspace_bytes": p.work_floats * 4}
 
 
 class MemoryCheckpoints:
@@ -2567,15 +2590,17 @@ def main() -> int:
     del oracle, hcalls
     torch.cuda.empty_cache()
 
-    launches, hash_launches["train"], hcalls, _ = train_path(args, captured)
+    launches, bwd_design, hash_launches["train"], hcalls, _ = train_path(
+        args, captured)
     hash_shapes += [dict(r, path="train")
                     for r in hash_records(hcalls, None, None)]
     del hcalls
     bwd_args = captured.pop("ssd_scan_bwd")
     records["ssd_scan"]["train_launches"] = launches["ssd_scan"]
     records["ssd_scan"].update(ssd_train_forward(bwd_args[0]))
-    records["ssd_scan_bwd"] = ssd_bwd_record(*bwd_args,
-                                             launches["ssd_scan_bwd"])
+    records["ssd_scan_bwd"] = ssd_bwd_record(
+        *bwd_args, launches["ssd_scan_bwd"], bwd_design,
+        hmma["ssd_scan_bwd"])
     del bwd_args
     torch.cuda.empty_cache()
 

@@ -301,6 +301,127 @@ def ssd_scan_bwd_ref(x, a_log, b, c, dt, dy):
             a * dlam.sum(0))
 
 
+def ssd_scan_bwd_chunked_ref(x, a_log, b, c, dt, dy, *, chunk: int = 64,
+                             bf16_operands: bool = False):
+    """The SSD gradient in the chunked decomposition of the "tensor_core"
+    design of ``csrc/ssd_scan_bwd.cu``, in plain PyTorch (the same function
+    as ``ssd_scan_bwd_ref``; used by tests, not on the main path).
+
+    Per (batch, head, chunk of Q steps), with lam_t = a dt_t, cum_t its
+    running sum in the chunk, total = cum_{Q-1}, L_tj = exp(cum_t - cum_j)
+    for j <= t (else 0) and eT_j = exp(total - cum_j):
+      1. chunk states s = sum_t eT_t dt_t x_t b_t^T and r = sum_t
+         exp(cum_t) dy_t c_t^T;
+      2. state passing: h0 (the state entering each chunk) forward, h0' =
+         exp(total) h0 + s; G (the gradient into the state leaving it)
+         backward, G' = exp(total) G + r;
+      3. per chunk, from the scores CB_tj = c_t . b_j and DX_tj = dy_t .
+         x_j, M1 = CB L, M2 = DX L dt_j and T = CB L dt_j DX:
+           u  = M1^T dy + eT (b G^T),       dx = dt u,  ddt = x . u + ...
+           dc = exp(cum) (dy h0) + M2 b,    db = M2^T c + eT dt (x G)
+         and dcum_t = rowsum(T)_t - colsum(T)_t + exp(cum_t) dy_t^T h0 c_t
+         - v_t, v_t = eT_t dt_t x_t^T G b_t, with exp(total) <G, h0> +
+         sum_t v_t added at t = Q - 1; dlam is its reverse running sum in
+         the chunk, ddt = x . u + a dlam and da_log = a sum dt dlam;
+      4. db and dc summed over a group's heads in head order.
+    Steps past S are identity steps (dt = 0, zero inputs).
+    ``bf16_operands`` rounds to bf16 where the kernel does: every float32
+    product operand (w x and exp(cum) dy of step 1, h0, G, M1 and M2)
+    enters as a hi + lo pair of bf16 (two products); x, b, c and dy are
+    the model's bf16 already, and the scores, T and every sum stay
+    float32.  Returns (dx, db, dc, ddt, da_log) as ``ssd_scan_bwd_ref``
+    does."""
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    rep, Q = H // G, chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+
+    def rnd(t):
+        return t.to(torch.bfloat16).float() if bf16_operands else t
+
+    def split(t):
+        hi = rnd(t)
+        return (hi, rnd(t - hi)) if bf16_operands else (t, None)
+
+    def two(eq, pair, other):     # the pair's products, hi then lo
+        hi, lo = pair
+        out = torch.einsum(eq, hi, other)
+        return out if lo is None else out + torch.einsum(eq, lo, other)
+
+    def chunks(t, heads):         # (B, S, X, W) -> (B, H, nc, Q, W)
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, 0, 0, pad))
+        t = t.view(B, nc, Q, t.shape[2], t.shape[3]).permute(0, 3, 1, 2, 4)
+        return t.repeat_interleave(heads, dim=1)
+
+    xq, dyq = chunks(x, 1), chunks(dy, 1)
+    bq, cq = chunks(b, rep), chunks(c, rep)
+    dtq = torch.nn.functional.pad(dt.float(), (0, 0, 0, pad))
+    dtq = dtq.view(B, nc, Q, H).permute(0, 3, 1, 2)        # (B, H, nc, Q)
+    a = -torch.exp(a_log.float())
+    cum = torch.cumsum(a[:, None, None] * dtq, dim=-1)
+    total = cum[..., -1]
+    eT = torch.exp(torch.clamp(total[..., None] - cum, max=0.0))
+    ecum = torch.exp(cum)
+
+    # 1. chunk states
+    s = two("bhctp,bhctn->bhcpn", split((eT * dtq)[..., None] * xq), bq)
+    r = two("bhctp,bhctn->bhcpn", split(ecum[..., None] * dyq), cq)
+    # 2. state passing, forward and backward over the chunks
+    h0, gq = torch.empty_like(s), torch.empty_like(r)
+    cur = torch.zeros_like(s[:, :, 0])
+    for k in range(nc):
+        h0[:, :, k] = cur
+        cur = torch.exp(total[:, :, k])[..., None, None] * cur + s[:, :, k]
+    cur = torch.zeros_like(cur)
+    for k in reversed(range(nc)):
+        gq[:, :, k] = cur
+        cur = torch.exp(total[:, :, k])[..., None, None] * cur + r[:, :, k]
+    # 3. the chunk's gradients
+    idx = torch.arange(Q, device=x.device)
+    low = idx[:, None] >= idx[None, :]
+    gap = torch.clamp(cum[..., :, None] - cum[..., None, :], max=0.0)
+    dec = torch.where(low, torch.exp(gap), torch.zeros_like(gap))
+    cb = torch.einsum("bhctn,bhcjn->bhctj", cq, bq)
+    dxs = torch.einsum("bhctp,bhcjp->bhctj", dyq, xq)
+    m1 = cb * dec
+    m2 = dxs * dec * dtq[..., None, :]
+    pp = m1 * dxs                 # T without its dt_j: float32, no product
+    tt = pp * dtq[..., None, :]
+    m1, m2 = split(m1), split(m2)
+    h0p, gp = split(h0), split(gq)
+    dyh0 = two("bhcpn,bhctp->bhctn", h0p, dyq)
+    dc1 = ecum * (dyh0 * cq).sum(-1)
+    dch = ecum[..., None] * dyh0 + two("bhctj,bhcjn->bhctn", m2, bq)
+    bgt = two("bhcpn,bhcjn->bhcjp", gp, bq)
+    xbg = eT * (bgt * xq).sum(-1)
+    v = dtq * xbg
+    u = eT[..., None] * bgt + two("bhctj,bhctp->bhcjp", m1, dyq)
+    xg = two("bhcpn,bhcjp->bhcjn", gp, xq)
+    dbh = ((eT * dtq)[..., None] * xg
+           + two("bhctj,bhctn->bhcjn", m2, cq))
+    dcum = tt.sum(-1) - tt.sum(-2) + dc1 - v
+    dcum[..., -1] += torch.exp(total) * (gq * h0).sum((-2, -1)) + v.sum(-1)
+    dlam = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = pp.sum(-2) + xbg + a[:, None, None] * dlam
+    da_log = a * (dtq * dlam).sum((0, 2, 3))
+
+    def steps(t):                 # (B, H, nc, Q, ...) -> (B, S, H, ...)
+        t = t.movedim(1, 3).reshape(B, nc * Q, H, *t.shape[4:])
+        return t[:, :S]
+
+    def per_group(t):             # head order within each group
+        t = steps(t).view(B, S, G, rep, N)
+        out = t[:, :, :, 0]
+        for j in range(1, rep):
+            out = out + t[:, :, :, j]
+        return out
+
+    dx = steps(dtq[..., None] * u)
+    return (dx.to(x.dtype), per_group(dbh).to(b.dtype),
+            per_group(dch).to(c.dtype), steps(ddt).contiguous(), da_log)
+
+
 def tree_project(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """x (..., n, c) times a (..., c, k) -> (..., n, k), float32: every
     product rounded once, then summed over c by ``tree_sum``'s pairwise

@@ -11,9 +11,12 @@ padded or repeated: the kernels mask a ragged last chunk themselves and
 read B and C at each head's group through their strides.
 
 ``ssd_scan_bwd_cuda`` is the scan's gradient: ``csrc/ssd_scan_bwd.cu``, the
-port's own kernel (the reference differentiates its plain scan), on CUDA
-tensors, ``ref.ssd_scan_bwd_ref`` on CPU tensors; ``bwd_plan`` mirrors its
-shared memory and workspace, and it counts its calls in ``launches``.
+port's own kernels (the reference differentiates its plain scan), on CUDA
+tensors, ``ref.ssd_scan_bwd_ref`` on CPU tensors.  ``bwd_plan`` picks its
+design by ``plan``'s rule -- "tensor_core" (the chunked backward on
+``mma.sync``) or "cuda_core" (the reverse recurrence one step at a time,
+in float32) -- and mirrors its shared memory and workspace; it counts its
+calls in ``launches`` and ``launches_by_design``.
 """
 from __future__ import annotations
 
@@ -86,6 +89,17 @@ def cuda_core_smem_bytes(P: int, N: int) -> int:
     return (floats + 1) * 4
 
 
+def _tensor_core(dtype, P, N, strides, aligned) -> bool:
+    """bf16 with P and N multiples of 16, P <= 64, N <= 128, unit-stride
+    rows and every other stride (``strides``: 4 a tensor) a whole number
+    of 16-byte chunks, every pointer 16-byte aligned."""
+    strides = tuple(strides)
+    return (dtype == torch.bfloat16 and P % 16 == 0 and N % 16 == 0
+            and P <= TC_MAX_P and N <= TC_MAX_N and aligned
+            and all(s == 1 for s in strides[3::4])
+            and all(s % 8 == 0 for i, s in enumerate(strides) if i % 4 < 3))
+
+
 def plan(dtype: torch.dtype, P: int, N: int, *, strides=(),
          aligned: bool = True) -> Plan:
     """The design and sizing of a call at head width P and state width N.
@@ -99,11 +113,7 @@ def plan(dtype: torch.dtype, P: int, N: int, *, strides=(),
     an input neither design takes."""
     _need(0 < P <= MAX_P, f"head width {P} must be in [1, {MAX_P}]")
     _need(N > 0, f"state width {N} must be positive")
-    strides = tuple(strides)
-    if (dtype == torch.bfloat16 and P % 16 == 0 and N % 16 == 0
-            and P <= TC_MAX_P and N <= TC_MAX_N and aligned
-            and all(s == 1 for s in strides[3::4])
-            and all(s % 8 == 0 for i, s in enumerate(strides) if i % 4 < 3)):
+    if _tensor_core(dtype, P, N, strides, aligned):
         p = Plan("tensor_core", CHUNK, TC_THREADS, tc_smem_bytes(P, N))
     else:
         p = Plan("cuda_core", CHUNK, CC_THREADS, cuda_core_smem_bytes(P, N))
@@ -169,8 +179,8 @@ def ssd_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
 # The gradient: csrc/ssd_scan_bwd.cu
 # ---------------------------------------------------------------------------
 
-BWD_CHUNK = 32         # steps a staged chunk (boundary states between)
-BWD_COLS = 32          # state columns a block
+BWD_CHUNK = 32         # "cuda_core": steps a staged chunk
+BWD_COLS = 32          # "cuda_core": state columns a block
 BWD_THREADS = 256
 
 
@@ -179,38 +189,68 @@ def _bwd_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.ssd_scan_bwd_launch.argtypes = (
             [_P] * 12 + [_I] * 7 + [_LL] * 19 + [_P])
-        lib.ssd_scan_bwd_launch.restype = _I
+        lib.ssd_scan_bwd_tc_launch.argtypes = (
+            [_P] * 12 + [_I] * 6 + [_LL] * 19 + [_P])
+        for fn in (lib.ssd_scan_bwd_launch, lib.ssd_scan_bwd_tc_launch):
+            fn.restype = _I
         lib.ssd_scan_bwd_smem_bytes.argtypes = [_I]
-        lib.ssd_scan_bwd_smem_bytes.restype = _LL
-        lib.ssd_scan_bwd_work_floats.argtypes = [_I] * 5
-        lib.ssd_scan_bwd_work_floats.restype = _LL
+        lib.ssd_scan_bwd_tc_smem_bytes.argtypes = [_I, _I]
+        for fn in (lib.ssd_scan_bwd_work_floats,
+                   lib.ssd_scan_bwd_tc_work_floats):
+            fn.argtypes = [_I] * 5
+        for fn in (lib.ssd_scan_bwd_smem_bytes, lib.ssd_scan_bwd_tc_smem_bytes,
+                   lib.ssd_scan_bwd_work_floats,
+                   lib.ssd_scan_bwd_tc_work_floats):
+            fn.restype = _LL
         lib._typed = True
     return lib
 
 
 class BwdPlan(NamedTuple):
     """How one gradient call runs, as ``csrc/ssd_scan_bwd.cu`` sizes it."""
-    rows: int          # head width padded to 16, 32, 64 or 128
-    sub: int           # steps whose states a thread holds in registers
-    blocks: int        # state blocks: (batch, head, slice of 32 columns)
-    smem_bytes: int    # dynamic shared memory of a state block
+    design: str        # "tensor_core" or "cuda_core"
+    blocks: int        # blocks of the main kernel: (batch, head, chunk)
+                       # or (batch, head, slice of 32 state columns)
+    smem_bytes: int    # dynamic shared memory of a main-kernel block
     work_floats: int   # float32 workspace the wrapper allocates
 
 
-def bwd_plan(B: int, S: int, H: int, P: int, N: int) -> BwdPlan:
-    """The sizing of a gradient call; raises ValueError past P = 128."""
+def bwd_tc_smem_bytes(P: int, N: int) -> int:
+    """Shared bytes of a chunk block of the tensor-core design: bf16 x, dy
+    (Q, P + 8), b, c (Q, N + 8), h0 or G as hi and lo (P, N + 8), M1 or M2
+    as hi and lo (Q, Q + 8); float32 dt, cum, T's row sums, dc1, xbg (Q,)
+    each, the 4 warps' column sums (4, Q) and 8 floats of reductions."""
+    q = CHUNK
+    return (2 * q * (P + 8) * 2 + 2 * q * (N + 8) * 2 + 2 * P * (N + 8) * 2
+            + 2 * q * (q + 8) * 2 + 9 * q * 4 + 8 * 4)
+
+
+def bwd_plan(dtype: torch.dtype, B: int, S: int, H: int, P: int, N: int, *,
+             strides=(), aligned: bool = True) -> BwdPlan:
+    """The gradient's design and sizing, by ``plan``'s rule over the
+    strides of x, b, c and dy (4 each) and their alignment.  Raises
+    ValueError for an input neither design takes (P past 128)."""
     _need(0 < P <= MAX_P, f"head width {P} must be in [1, {MAX_P}]")
     _need(N > 0 and S > 0, f"S={S} and N={N} must be positive")
-    pp = next(w for w in (16, 32, 64, 128) if P <= w)
-    sub = 8 if pp <= 64 else 4
-    ns = -(-N // BWD_COLS)
-    q, cols, warps = BWD_CHUNK, BWD_COLS, BWD_THREADS // 32
-    smem = 4 * (2 * q * pp + 2 * q * cols + q + 2 * sub * warps * cols
-                + sub * pp + sub * warps)
-    nck = -(-S // q)
-    work = (B * H * ns * nck * pp * cols + B * S * H * ns * P
-            + B * S * H * ns + 2 * B * S * H * N + B * S * H)
-    return BwdPlan(pp, sub, B * H * ns, smem, work)
+    if _tensor_core(dtype, P, N, strides, aligned):
+        nc = -(-S // CHUNK)
+        work = 2 * B * H * nc * P * N + 2 * B * S * H * N + B * H * nc
+        p = BwdPlan("tensor_core", B * H * nc, bwd_tc_smem_bytes(P, N),
+                    work)
+    else:
+        pp = next(w for w in (16, 32, 64, 128) if P <= w)
+        sub = 8 if pp <= 64 else 4
+        ns = -(-N // BWD_COLS)
+        q, cols, warps = BWD_CHUNK, BWD_COLS, BWD_THREADS // 32
+        smem = 4 * (2 * q * pp + 2 * q * cols + q + 2 * sub * warps * cols
+                    + sub * pp + sub * warps)
+        nck = -(-S // q)
+        work = (B * H * ns * nck * pp * cols + B * S * H * ns * P
+                + B * S * H * ns + 2 * B * S * H * N + B * S * H)
+        p = BwdPlan("cuda_core", B * H * ns, smem, work)
+    _need(p.smem_bytes <= SMEM_LIMIT, f"P={P}, N={N} need {p.smem_bytes} "
+          f"bytes of shared memory, past the {SMEM_LIMIT} a block may have")
+    return p
 
 
 def ssd_scan_bwd_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
@@ -218,9 +258,9 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     """Gradient of ``ssd_scan_cuda`` at (x, a_log, b, c, dt) for the output
     gradient dy (B, S, H, P) in x's dtype: returns (dx, db, dc, ddt,
     da_log), dx, db and dc in x's dtype, ddt (B, S, H) and da_log (H,)
-    float32.  The kernel on CUDA tensors (deterministic: no atomics, every
-    sum in a fixed order), ``ref.ssd_scan_bwd_ref`` on CPU tensors.  Any
-    S."""
+    float32.  The kernels on CUDA tensors (deterministic: no atomics,
+    every sum in a fixed order), ``ref.ssd_scan_bwd_ref`` on CPU tensors.
+    Any S."""
     _need(x.dim() == 4 and b.dim() == 4 and c.shape == b.shape,
           "x must be (B, S, H, P) and b, c (B, S, G, N)")
     B, S, H, P = x.shape
@@ -247,30 +287,39 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     da_log = torch.empty((H,), dtype=torch.float32, device=dev)
     if S == 0 or B == 0:
         return dx, db.zero_(), dc.zero_(), ddt, da_log.zero_()
-    p = bwd_plan(B, S, H, P, N)
+    strides = [*x.stride(), *b.stride(), *c.stride(), *dy.stride()]
+    p = bwd_plan(x.dtype, B, S, H, P, N, strides=strides, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, b, c, dy)))
     work = torch.empty((p.work_floats,), dtype=torch.float32, device=dev)
     a_log = a_log.contiguous()
+    ptrs = (x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
+            a_log.data_ptr(), dy.data_ptr(), dx.data_ptr(), db.data_ptr(),
+            dc.data_ptr(), ddt.data_ptr(), da_log.data_ptr(),
+            work.data_ptr())
+    dims = (B, S, H, G, P, N)
+    strides = (*x.stride(), *b.stride(), *c.stride(), *dt.stride(),
+               *dy.stride())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _bwd_lib().ssd_scan_bwd_launch(
-        x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
-        a_log.data_ptr(), dy.data_ptr(), dx.data_ptr(), db.data_ptr(),
-        dc.data_ptr(), ddt.data_ptr(), da_log.data_ptr(), work.data_ptr(),
-        _DTYPES[x.dtype], B, S, H, G, P, N, *x.stride(), *b.stride(),
-        *c.stride(), *dt.stride(), *dy.stride(), stream)
+    lib = _bwd_lib()
+    if p.design == "tensor_core":
+        err = lib.ssd_scan_bwd_tc_launch(*ptrs, *dims, *strides, stream)
+    else:
+        err = lib.ssd_scan_bwd_launch(*ptrs, _DTYPES[x.dtype], *dims,
+                                      *strides, stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan_bwd launch failed ({p.design}): CUDA "
+                           f"error {err}")
     ssd_scan_bwd_cuda.launches += 1
+    ssd_scan_bwd_cuda.launches_by_design[p.design] += 1
     return dx, db, dc, ddt, da_log
 
 
 def reset_launches() -> None:
-    """Set the launch counts, total and per design, to 0 (the gradient's
-    too)."""
-    ssd_scan_cuda.launches = 0
-    ssd_scan_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
-    ssd_scan_bwd_cuda.launches = 0
+    """Set the launch counts of both wrappers, total and per design, to
+    0."""
+    for fn in (ssd_scan_cuda, ssd_scan_bwd_cuda):
+        fn.launches = 0
+        fn.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
-ssd_scan_cuda.launches = 0
-ssd_scan_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
-ssd_scan_bwd_cuda.launches = 0
+reset_launches()

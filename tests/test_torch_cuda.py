@@ -705,35 +705,52 @@ def _ssd_grads_close(got, want):
     (1, 50, 2, 1, 100, 64),       # P padded to 128
 ])
 def test_ssd_bwd_kernel_matches_plain_version(dtype, shape):
+    """Each shape's design: bf16 at P, N multiples of 16 (P <= 64, N <=
+    128) the chunked "tensor_core" one, anything else "cuda_core"."""
     dev = _cuda()
     B, S, H, G, P, N = shape
     args = _ssd(S + P, B, S, H, G, P, N, dtype, dev, mamba_decay=H > 4)
     dy = (torch.randn((B, S, H, P), generator=torch.Generator()
                       .manual_seed(S)) * 0.5).to(dev, dtype)
     want = ref.ssd_scan_bwd_ref(*args, dy)
-    before = kssd.ssd_scan_bwd_cuda.launches
+    design = ("tensor_core" if dtype == torch.bfloat16 and P % 16 == 0
+              and N % 16 == 0 and P <= 64 and N <= 128 else "cuda_core")
+    before = (kssd.ssd_scan_bwd_cuda.launches,
+              kssd.ssd_scan_bwd_cuda.launches_by_design[design])
     got = kssd.ssd_scan_bwd_cuda(*args, dy)
     torch.cuda.synchronize()
-    assert kssd.ssd_scan_bwd_cuda.launches == before + 1
+    assert (kssd.ssd_scan_bwd_cuda.launches,
+            kssd.ssd_scan_bwd_cuda.launches_by_design[design]) == (
+        before[0] + 1, before[1] + 1)
     _ssd_grads_close(got, want)
 
 
+def _strided_ssd(args):
+    """x, b and c as the SSM block passes them: views of one tensor."""
+    x, a_log, b, c, dt = args
+    xbc = torch.cat([x.flatten(2), b.flatten(2), c.flatten(2)], dim=-1)
+    xs, bs, cs = torch.split(xbc, [x[0, 0].numel(), b[0, 0].numel(),
+                                   c[0, 0].numel()], dim=-1)
+    return (xs.view(x.shape), a_log, bs.view(b.shape), cs.view(c.shape), dt)
+
+
 @pytest.mark.gpu
-def test_ssd_bwd_kernel_launches_are_bitwise_equal():
+@pytest.mark.parametrize("shape", [
+    (2, 300, 8, 2, 64, 128),
+    (8, 1024, 24, 1, 64, 128),    # mamba2-130m's training step
+])
+def test_ssd_bwd_kernel_launches_are_bitwise_equal(shape):
     """No atomics: two launches on the same inputs give the same bits."""
     dev = _cuda()
-    args = _ssd(7, 2, 300, 8, 2, 64, 128, torch.bfloat16, dev, True)
-    x, a_log, b, c, dt = args
-    # x, b and c as the SSM block passes them: strided views
-    xbc = torch.cat([x.flatten(2), b.flatten(2), c.flatten(2)], dim=-1)
-    x, b, c = torch.split(xbc, [x[0, 0].numel(), b[0, 0].numel(),
-                                c[0, 0].numel()], dim=-1)
-    x, b, c = (x.view(args[0].shape), b.view(args[2].shape),
-               c.view(args[3].shape))
+    args = _ssd(7, *shape, torch.bfloat16, dev, True)
+    x, a_log, b, c, dt = _strided_ssd(args)
     dy = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)
                      ).to(dev, torch.bfloat16)
+    before = kssd.ssd_scan_bwd_cuda.launches_by_design["tensor_core"]
     one = kssd.ssd_scan_bwd_cuda(x, a_log, b, c, dt, dy)
     two = kssd.ssd_scan_bwd_cuda(x, a_log, b, c, dt, dy)
+    assert kssd.ssd_scan_bwd_cuda.launches_by_design["tensor_core"] == \
+        before + 2
     for g1, g2 in zip(one, two):
         assert torch.equal(g1, g2)
     _ssd_grads_close(one, ref.ssd_scan_bwd_ref(x, a_log, b, c, dt, dy))
@@ -741,14 +758,51 @@ def test_ssd_bwd_kernel_launches_are_bitwise_equal():
 
 @pytest.mark.gpu
 def test_ssd_bwd_plan_mirrors_the_kernel():
+    """Both designs' shared memory and workspace, as the C side sizes
+    them: "cuda_core" at every head width, "tensor_core" at every width
+    it takes."""
     _cuda()
     lib = kssd._bwd_lib()
     for P in range(1, kssd.MAX_P + 1):
-        for B, S, H, N in ((1, 1, 1, 1), (8, 1024, 24, 128), (2, 77, 4, 40)):
-            p = kssd.bwd_plan(B, S, H, P, N)
+        for B, S, H, N in ((1, 1, 1, 1), (8, 1024, 24, 128), (2, 77, 4, 40),
+                           (2, 77, 4, 16), (1, 130, 2, 96)):
+            p = kssd.bwd_plan(torch.float32, B, S, H, P, N)
+            assert p.design == "cuda_core"
             assert lib.ssd_scan_bwd_smem_bytes(P) == p.smem_bytes
             assert lib.ssd_scan_bwd_work_floats(B, S, H, P, N) == \
                 p.work_floats
+            p = kssd.bwd_plan(torch.bfloat16, B, S, H, P, N)
+            if P % 16 or N % 16 or P > 64:
+                assert p.design == "cuda_core"
+                continue
+            assert p.design == "tensor_core"
+            assert lib.ssd_scan_bwd_tc_smem_bytes(P, N) == p.smem_bytes
+            assert lib.ssd_scan_bwd_tc_work_floats(B, S, H, P, N) == \
+                p.work_floats
+
+
+@pytest.mark.gpu
+def test_ssd_scan_op_gradient_at_the_training_shape_is_tensor_core():
+    """``ops.ssd_scan``'s backward at mamba2-130m's training shape (8 x
+    1,024 tokens, 24 heads of 64, N = 128, x, b, c as strided views)
+    takes the "tensor_core" design, and its gradients are that launch's
+    bits."""
+    dev = _cuda()
+    args = _strided_ssd(_ssd(13, 8, 1024, 24, 1, 64, 128, torch.bfloat16,
+                             dev, True))
+    leaves = [t.detach().requires_grad_() for t in args]
+    dy = torch.randn(args[0].shape, generator=torch.Generator()
+                     .manual_seed(3)).to(dev, torch.bfloat16)
+    before = dict(kssd.ssd_scan_bwd_cuda.launches_by_design)
+    ops.ssd_scan(*leaves).backward(dy)
+    torch.cuda.synchronize()
+    after = kssd.ssd_scan_bwd_cuda.launches_by_design
+    assert (after["tensor_core"] - before["tensor_core"],
+            after["cuda_core"] - before["cuda_core"]) == (1, 0)
+    want = kssd.ssd_scan_bwd_cuda(*(t.detach() for t in args), dy)
+    for leaf, w in zip(leaves, (want[0], want[4], want[1], want[2],
+                                want[3])):
+        assert torch.equal(leaf.grad, w)
 
 
 @pytest.mark.gpu
