@@ -111,13 +111,18 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                kernel is held against its plain version at one layer's
                inputs of a training step, and against its own second
                launch, bitwise; the flash forward's output bitwise the
-               same with and without its log-sum-exp there.
+               same with and without its log-sum-exp there.  Last, the
+               flash gradient is timed once more at gemma-7b's published
+               context, (1, 16, 8,192, 256), causal, beside
+               ``scaled_dot_product_attention``'s backward and its bound,
+               and held against its plain version head by head.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers (forward and gradient) also count
 per design, and every launch of those paths must go to their
-"tensor_core" designs, whose SASS must hold tensor-core (HMMA)
-instructions.  Each kernel is then
+"tensor_core" designs, whose SASS must hold tensor-core instructions:
+HMMA (``mma.sync``) in the flash forward's and both SSD kernels', HGMMA
+(``wgmma``) in each of the flash gradient's.  Each kernel is then
 held against its plain PyTorch version on the inputs its path gave it
 and timed with CUDA events (both gradient kernels also against their own
 second launch, bitwise); the hash kernel BITWISE, at the first call
@@ -221,6 +226,9 @@ DENSE_STEPS, DENSE_CKPT_EVERY, DENSE_FAIL_AT, DENSE_TIMED = 16, 4, 8, 3
 # magnitude (bf16 outputs: a step is 2**-8 of a value, and P and dS are
 # rounded to bf16 on both sides), and bitwise its own second launch
 FLASH_BWD_TOL = 1e-2
+# the flash gradient once more at gemma-7b's published context
+# (arXiv:2403.08295: 8,192 tokens), one sequence of 16 heads of 256, causal
+LONG_BATCH, LONG_SEQ = 1, 8192
 
 
 def check(cond, msg):
@@ -255,16 +263,20 @@ def build_kernels():
 
 
 def hmma_counts(libs):
-    """Tensor-core (HMMA) instructions in the SASS of each tensor-core
-    kernel (``cuobjdump --dump-sass`` of the toolkit that built them), by
-    source; each must have some."""
+    """Tensor-core instructions in the SASS of each tensor-core kernel
+    (``cuobjdump --dump-sass`` of the toolkit that built them), by source:
+    HMMA (``mma.sync``) and HGMMA (``wgmma``) apart.  Each kernel of the
+    flash forward and the SSD scan and its gradient must have HMMA; each
+    of the flash gradient's (on ``wgmma`` since PR 22) HGMMA."""
     from repro_torch.kernels import _build
     tool = str(Path(_build.nvcc()).parent / "cuobjdump")
     counts = {}
-    for name, kernel in (("flash_attention", "flash_attention_tc_kernel"),
-                         ("flash_attention_bwd", "_tc_kernel"),
-                         ("ssd_scan", "ssd_scan_tc_kernel"),
-                         ("ssd_scan_bwd", "ssd_bwd_tc_")):
+    for name, kernels, op in (
+            ("flash_attention", ("flash_attention_tc_kernel",), "HMMA"),
+            ("flash_attention_bwd", ("fa_bwd_dkdv_tc_kernel",
+                                     "fa_bwd_dq_tc_kernel"), "HGMMA"),
+            ("ssd_scan", ("ssd_scan_tc_kernel",), "HMMA"),
+            ("ssd_scan_bwd", ("ssd_bwd_tc_",), "HMMA")):
         sass = subprocess.run([tool, "--dump-sass", str(libs[name])],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -272,17 +284,24 @@ def hmma_counts(libs):
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                per_fn[fn] = 0
-            elif fn is not None and "HMMA" in line:
-                per_fn[fn] += 1
-        tc_fns = {f: n for f, n in per_fn.items() if kernel in f}
-        check(tc_fns and all(n > 0 for n in tc_fns.values()),
-              f"{kernel}: no HMMA instruction in its SASS ({tc_fns})")
-        counts[name] = sum(tc_fns.values())
-        print(f"sass {name}: {counts[name]} HMMA instructions over "
-              f"{len(tc_fns)} {kernel} instantiations "
-              f"{sorted(tc_fns.values())}; "
-              f"{sum(per_fn.values()) - counts[name]} elsewhere")
+                per_fn[fn] = {"HMMA": 0, "HGMMA": 0}
+            elif fn is not None:
+                for kind in ("HMMA", "HGMMA"):
+                    if kind in line:
+                        per_fn[fn][kind] += 1
+        tc_fns = {f: n for f, n in per_fn.items()
+                  if any(k in f for k in kernels)}
+        check(tc_fns and all(n[op] > 0 for n in tc_fns.values()),
+              f"{kernels}: no {op} instruction in its SASS ({tc_fns})")
+        counts[name] = {kind: sum(n[kind] for n in tc_fns.values())
+                        for kind in ("HMMA", "HGMMA")}
+        elsewhere = (sum(n["HMMA"] + n["HGMMA"] for n in per_fn.values())
+                     - sum(counts[name].values()))
+        print(f"sass {name}: {counts[name]['HMMA']} HMMA and "
+              f"{counts[name]['HGMMA']} HGMMA instructions over "
+              f"{len(tc_fns)} {'/'.join(kernels)} kernels "
+              f"{sorted(n[op] for n in tc_fns.values())} ({op}); "
+              f"{elsewhere} elsewhere")
     return counts
 
 
@@ -2484,6 +2503,73 @@ def flash_bwd_record(a, kw, launches, by_design, hmma):
         "bitwise_repeat": bitwise, "sass_hmma": hmma}
 
 
+def flash_bwd_long(seed):
+    """The flash gradient kernel at gemma-7b's published context: (1, 16,
+    8,192, 256), causal, bf16; q, k, v and dout from ``seed`` as the views
+    the training path hands over, o and lse from the forward kernel.  Timed
+    with CUDA events beside ``scaled_dot_product_attention``'s backward on
+    the same inputs (the yardstick) and the bound of the same formula, and
+    held against the plain version one head at a time (its scores of all
+    16 heads would be 4.3 GB a float32 matrix).  Runs after the train_dense
+    path has released its memory; returns the record's extra keys."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    torch.cuda.reset_peak_memory_stats()
+    B, S, H, dh = LONG_BATCH, LONG_SEQ, 16, 256
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda sc: (torch.randn((B, S, H, dh), generator=g, device="cuda")
+                     * sc).bfloat16().transpose(1, 2)
+    q, k, v, dout = mk(0.5), mk(0.5), mk(0.5), mk(1.0)
+    o, lse = kfa.flash_attention_cuda(q, k, v, return_lse=True)
+    a = (q, k, v, o, lse, dout)
+    strides = [s for t in (q, k, v, o, dout) for s in t.stride()[:3]]
+    design = kfa.bwd_plan(q.dtype, dh, S, S, strides=strides).design
+    check(design == "tensor_core",
+          f"flash_attention_bwd plans {design} at (1, 16, {S}, {dh})")
+    ms, got = timed(lambda: kfa.flash_attention_bwd_cuda(*a), REPS)
+    errs = {}
+    t0 = time.perf_counter()
+    for h in range(H):
+        want = ref.flash_attention_bwd_ref(*(t[:, h:h + 1] for t in a))
+        for name, x, w in zip(("dq", "dk", "dv"), got, want):
+            x, w = x[:, h:h + 1].float(), w.float()
+            scale = float(w.abs().max())
+            err = float((x - w).abs().max())
+            check(bool(torch.isfinite(x).all()) and torch.allclose(
+                      x, w, rtol=FLASH_BWD_TOL, atol=FLASH_BWD_TOL * scale),
+                  f"flash_attention_bwd {name} of head {h} at (1, 16, {S}, "
+                  f"{dh}) differs from its plain version by {err} (largest "
+                  f"|value| {scale})")
+            errs[name] = max(errs.get(name, 0.0), err / max(scale, 1e-30))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    qd, kd, vd = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True)
+        library_ms, _ = timed(lambda: torch.autograd.grad(
+            lib_out, (qd, kd, vd), dout, retain_graph=True), REPS)
+    del lib_out
+    nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, dout))
+              + lse.numel() * 4
+              + sum(t.numel() * t.element_size() for t in got))
+    flops = 10.0 * B * H * S * (S + 1) // 2 * dh
+    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"flash_attention_bwd ({design}) at gemma-7b's context: q "
+          f"{tuple(q.shape)} {q.dtype} strides {q.stride()}, causal: "
+          f"{ms:.4f} ms (scaled_dot_product_attention's backward "
+          f"{library_ms:.4f} ms, bound {bound:.4f} ms: {nbytes / 1e6:.1f} "
+          f"MB, {flops / 1e9:.2f} GFLOP; plain, head by head, {plain_ms:.1f} "
+          f"ms), over the largest |value| {errs} (tolerance {FLASH_BWD_TOL}),"
+          f" peak device memory {peak:.2f} GiB")
+    return {"long_shape": [B, H, S, dh], "long_ms": ms,
+            "long_plain_ms": plain_ms, "long_library_ms": library_ms,
+            "long_bound_ms": bound, "long_bound_by": by,
+            "long_max_rel_err_by_output": errs, "long_peak_gib": peak}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2612,6 +2698,8 @@ def main() -> int:
         fa_args, fa_kw, launches["flash_attention_bwd"],
         by_design["flash_attention_bwd"], hmma["flash_attention_bwd"])
     del fa_args
+    torch.cuda.empty_cache()
+    records["flash_attention_bwd"].update(flash_bwd_long(args.seed))
     print(f"total {time.perf_counter() - t_start:.0f} s")
     records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
                                           own_launches)

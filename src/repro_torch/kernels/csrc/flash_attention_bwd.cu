@@ -37,36 +37,52 @@
 //  * dQ: one block per (batch, head, tile of query rows), walking the key
 //    tiles its rows can see, recomputing S and dP, dQ in registers.
 // S and dP are computed twice (once for dK/dV, once for dQ): seven
-// products where a one-pass design with atomics has five.
+// products where a one-pass design has five, and must add dQ's partial
+// sums across key tiles with atomics (not bitwise) or through memory (at
+// the training shape ~0.56 GB more traffic, four times the bound).
 //
 // Two designs; the wrapper's bwd_plan (kernels/flash_attention.py) picks
 // one before the launch, never after a failure:
 //
 // "tensor_core" (bf16, dh % 16 == 0, every pointer and stride 16-byte
-// aligned: the training path's every launch).  mma.sync m16n8k16 bf16 ->
-// f32 with ldmatrix fragments (csrc/hopper_mma.cuh), as the forward:
-//  * dK/dV (fa_bwd_dkdv_tc_kernel): 8 warps own TC_BK = 32 keys; K and V
-//    tiles stay in shared memory, Q and dO tiles of TC_BQ = 64 queries
-//    (and their lse, delta) are staged by cp.async.  Phase 1: warp
-//    (r, c) computes S^T and dP^T for keys 16 r .. 16 r + 15 against
-//    queries 16 c .. 16 c + 15 (A = K or V rows, B = Q or dO rows, over
-//    the full dh), P^T = 2^(s c2 - lse2) (c2 the scale, lse2 the lse, in
-//    log2 units: lse is converted once, as it is staged) and dS^T, both
-//    rounded to bf16 -- the reference's rounding points -- and written
-//    to shared memory.  Phase 2: warp (r, c) owns the dh columns of
-//    16-column blocks c, c + 4, ... of keys 16 r ..: dV += P^T dO and
-//    dK += dS^T Q (A = P^T or dS^T from shared memory, B = dO or Q by
-//    ldmatrix.trans), so a thread holds at most 2 x 32 accumulators at
-//    dh = 256 (four blocks of 16 columns, two n-tiles each, twice);
-//  * dQ (fa_bwd_dq_tc_kernel): 4 warps own 64 query rows, 16 a warp,
-//    as the forward's blocks; Q and dO rows stay in shared memory, K and
-//    V tiles of key_tile(dh) keys are staged; S and dP per warp on
-//    mma.sync, P and dS in registers, dS rounded to bf16 as the A operand
-//    of dQ += dS K (K by ldmatrix.trans); dQ in registers (dh / 2 floats a
-//    thread).
-//  Shared memory at dh = 256: dK/dV 32 + 64 rows of two tensors each
-//  (101 KB) plus P^T, dS^T (9 KB) and lse, delta; dQ 2 x 64 + 2 x 32
-//  rows (101 KB): two blocks an SM each.
+// aligned and every stride positive: the training path's every launch).
+// Every product on wgmma (csrc/hopper_wgmma.cuh), bf16 -> f32, its
+// shared-memory operands written by TMA (128-byte swizzle, zeros past each
+// extent, so ragged tiles need no special load) through a ring of stages.
+// A block is two consumer warpgroups and a producer warpgroup, one thread
+// of which issues every copy and waits on "empty" mbarriers while the
+// consumers wait on "full" ones, so the next tiles' copies run under this
+// tile's products; the producer gives all but 40 of its registers to the
+// consumers (setmaxnreg: 232 each).  The head width is padded to 64, 128 or
+// 256 (columns past dh are zeros).  A delta pass writes the workspace: lse
+// in log2 units and delta, each padded with zeros to whole 64-row tiles,
+// so that a tile's 64 values are one aligned 256-byte bulk copy.
+//  * dK/dV (fa_bwd_dkdv_tc_kernel): TC_BK = 64 keys, their K and V tiles
+//    resident; a ring of KV_STAGES = 2 stages of Q and dO tiles of 64
+//    queries with their lse2 and delta.  dK and dV of 64 keys in float32
+//    (2 x 64 x 256 / 128 = 256 registers a thread at dh = 256) do not fit
+//    one warpgroup, so warpgroup 0 owns dV and warpgroup 1 dK.  Warpgroup
+//    0: S^T = K Q^T (m64n64, both K-major from shared memory), P^T =
+//    2^(s c2 - lse2) (c2 the scale) rounded to bf16 in registers, then dV
+//    += P^T dO with P^T as the A operand in registers (its accumulator
+//    layout is the A layout) and dO MN-major (the transpose bit).
+//    Warpgroup 1 meanwhile: dP^T = V dO^T; it takes P^T (8 KB, bf16,
+//    thread for thread in the accumulator layout) through shared memory
+//    behind a named barrier, forms dS^T = P^T (dP^T - delta) rounded to
+//    bf16, and adds dK += dS^T Q.  202 KB of shared memory at dh = 256:
+//    one block an SM.
+//  * dQ (fa_bwd_dq_tc_kernel): TC_QROWS = 128 query rows, 64 a warpgroup,
+//    Q and dO resident; a ring of DQ_STAGES = 3 stages of K and V tiles of
+//    dq_key_tile keys (64 up to dh = 128, 32 above).  S = Q K^T and dP =
+//    dO V^T (K-major) as two groups of products, P's exponentials while dP
+//    runs, dS = P (dP - delta) rounded to bf16 in registers as the A
+//    operand of dQ += dS K (K MN-major), left running into the next
+//    tile's products.  225 KB at dh = 256.
+// Only a tile on the causal diagonal or a ragged edge tests each element's
+// mask.  Blocks go heaviest first (the first key tiles, the last query
+// tiles of a causal mask) within groups of heads whose streamed tiles fit
+// L2 together; a tile's descriptors are built once and stepped by adding
+// offsets.
 //
 // "cuda_core" (float32, whose card tolerance bf16 products could not
 // meet, and any bf16 input the tensor-core design does not take): the
@@ -81,19 +97,26 @@
 // H = Hkv = 16, S = 1,024, dh = 256, bf16, causal) the least work is five
 // causal products of B H S^2 dh / 2 multiply-adds (43 GFLOP, 0.044 ms on
 // bf16 tensor cores) and some 135 MB of inputs and outputs (0.040 ms): the
-// operations, barely.  This design spends seven products on mma.sync
-// (not wgmma), single-buffers its tiles (no copy overlaps a product) and
-// exchanges P^T and dS^T through shared memory, so it sits well above
-// that bound; wgmma, TMA and a one-pass schedule are later work.
+// operations, barely.  This design spends seven products (60 GFLOP,
+// 0.061 ms at the peak rate).  What holds it above that, measured by
+// taking parts out (PERF.md, PR 22): the consumers' instruction issue
+// (each tile's exponentials, masks and product issue share a scheduler
+// with the other warpgroup's), the dQ kernel's S and dP products, m64n32
+// at dh = 256 and so bound by reading their operands from shared memory,
+// and the dK/dV block's two warpgroups, coupled through P^T.  Loads are
+// not: taking the streamed copies out moves neither kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <climits>
 #include <initializer_list>
 
 #include "hopper_mma.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
@@ -480,407 +503,679 @@ cudaError_t launch_cc(const Args& a, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// "tensor_core": bf16 on mma.sync (see the header note)
+// "tensor_core": bf16 on wgmma, fed by TMA through a ring of stages (see the
+// header note)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TC_BK = 32;        // keys a dK/dV block owns
-constexpr int TC_BQ = 64;        // queries a dK/dV block stages at a time
-constexpr int TC_KV_WARPS = 8;   // 2 row groups x 4 column groups
-constexpr int TC_Q_WARPS = 4;    // a dQ block: 4 warps of 16 query rows
-constexpr int TC_BM = 16 * TC_Q_WARPS;
-constexpr int PAD = 8;           // bf16 a shared row is padded by
+constexpr int TC_BK = 64;       // keys a dK/dV block owns
+constexpr int TC_BQ = 64;       // queries of a dK/dV stage
+constexpr int TC_QROWS = 128;   // query rows a dQ block owns, 64 a warpgroup
+constexpr int KV_STAGES = 2;    // staged Q, dO tile pairs of a dK/dV block
+constexpr int DQ_STAGES = 3;    // staged K, V tile pairs of a dQ block
+constexpr long long L2_SHARE = 16 << 20;   // bytes a group of heads keeps
+                                           // in L2 (of its 50 MB)
+constexpr int CONSUMERS = 2 * 128;   // threads of the two consumer warpgroups
+constexpr int TC_THREADS = CONSUMERS + 128;   // and the producer's
+// registers a thread: 384 threads start at 168 (65,536 / 384, rounded
+// down to 8); the producer gives back all but PRODUCER_REGS, and each
+// consumer takes CONSUMER_REGS (2 x 128 x 232 + 128 x 40 <= 65,536)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int BAR_BYTES = 64;   // the mbarriers, after the tiles
+constexpr int SWZ = 1024;       // alignment of a swizzled tile
 
-__host__ __device__ constexpr int key_tile(int dh) {
-  return dh <= 128 ? 64 : 32;
+// The head width rounded up to whole 64-column panels (columns past dh
+// read as zeros), and the keys of a dQ block's stage at that width.
+__host__ __device__ constexpr int padded(int dh) {
+  return dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+__host__ __device__ constexpr int dq_key_tile(int dmp) {
+  return dmp <= 128 ? 64 : 32;
 }
 
+// the dK/dV block's shared memory: K, V, the ring of Q, dO tiles, P^T and
+// each stage's 64 lse2 and delta values
 size_t tc_dkdv_smem_bytes(int dh) {
-  return static_cast<size_t>(2 * (TC_BK + TC_BQ) * (dh + PAD)) * 2 +
-         static_cast<size_t>(2 * TC_BK * (TC_BQ + PAD)) * 2 +
-         static_cast<size_t>(2 * TC_BQ) * 4;
+  const size_t tile = static_cast<size_t>(TC_BK) * padded(dh) * 2;
+  return SWZ + (2 + 2 * KV_STAGES) * tile + TC_BK * TC_BQ * 2 +
+         KV_STAGES * 2 * TC_BQ * 4 + BAR_BYTES;
 }
 
 size_t tc_dq_smem_bytes(int dh) {
-  return static_cast<size_t>(2 * TC_BM + 2 * key_tile(dh)) * (dh + PAD) * 2;
+  const int dmp = padded(dh);
+  return SWZ + static_cast<size_t>(2 * TC_QROWS +
+                                   2 * DQ_STAGES * dq_key_tile(dmp)) * dmp * 2 +
+         BAR_BYTES;
 }
 
-// ldmatrix lane offsets (row stride ld) for: an A operand, 16 rows x 16
-// columns of a row-major tile; a B operand whose tile is stored (n, k)
-// row-major (non-transposed load); a B operand stored (k, n) row-major
-// (transposed load).  Each x4 load of the B kinds gives two n-tiles of 8.
-__device__ __forceinline__ int a_off(int lane, int ld) {
-  return (lane & 15) * ld + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int bn_off(int lane, int ld) {
-  return ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
-}
-__device__ __forceinline__ int bk_off(int lane, int ld) {
-  return ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + (lane >> 4) * 8;
+__device__ __forceinline__ uint8_t* align_swz(uint8_t* p) {
+  return p + ((SWZ - (wg::smem_u32(p) & (SWZ - 1))) & (SWZ - 1));
 }
 
-// rows [r0, r0 + n) of a (row-strided) bf16 tensor into a shared tile of
-// row stride ld, by 16-byte cp.async; rows past `limit` are zero-filled.
-template <int THREADS>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long long stride, int r0, int n,
-                                           int limit, int dh, int ld) {
-  const int cpr = dh / 8;
-  for (int i = threadIdx.x; i < n * cpr; i += THREADS) {
-    const int r = i / cpr;
-    const int ch = i - r * cpr;
-    const bool in = r0 + r < limit;
-    tc::cp_async16(dst + r * ld + ch * 8,
-                   (in ? src + (r0 + r) * stride : src) + ch * 8,
-                   in ? 16 : 0);
-  }
+struct TcShape {
+  int n_bh, head_group, H, Hkv, group, Sq, Sk, dh;
+  int Sq_pad;   // rows of each (batch, head) in the lse2 and delta workspace
+  float scale, scale_log2;
+  int causal;
+};
+
+// This block's (batch, head) pair of n_bh and tile of n_tiles.  Heads go in
+// groups of head_group, whose tiles of the other operand fit L2 together;
+// a group runs tile 0 of each of its heads, then tile 1, ...
+__device__ __forceinline__ void block_tile(int n_bh, int head_group,
+                                           int n_tiles, int& bh, int& t) {
+  const int per_group = head_group * n_tiles;
+  const int grp = blockIdx.x / per_group;
+  const int rem = blockIdx.x - grp * per_group;
+  const int heads = min(head_group, n_bh - grp * head_group);
+  t = rem / heads;
+  bh = grp * head_group + rem - t * heads;
 }
 
-// DM: the widest head of this instantiation; EXACT: dh == DM.
-template <int DM, bool EXACT>
-__global__ void __launch_bounds__(TC_KV_WARPS * 32) fa_bwd_dkdv_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int Hkv, int group,
-    int Sq, int Sk, int dh_rt, float scale, float scale_log2, int causal,
-    Strides qs, Strides ks, Strides vs, Strides dos) {
-  constexpr int THREADS = TC_KV_WARPS * 32;
-  constexpr int NB = (DM / 16 + 3) / 4;   // 16-column blocks a warp owns
-  constexpr int ldp = TC_BQ + PAD;
-  const int dh = EXACT ? DM : dh_rt;
-  const int ld = dh + PAD;
-  const int warp = threadIdx.x >> 5;
+// The tensor-core design's workspace: lse2 = lse log2(e) (the lse in log2
+// units) and delta_i = sum_d dO_id O_id, each (B, H, Sq_pad), zero past Sq,
+// so that a tile of 64 rows is one aligned 256-byte copy.  One warp a row,
+// 8 columns a lane by 16-byte loads (dh % 16 == 0, 16-byte-aligned rows).
+__global__ void __launch_bounds__(DELTA_WARPS * 32) fa_bwd_delta_tc_kernel(
+    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ lse2,
+    float* __restrict__ delta, int H, int Sq, int Sq_pad, int dh,
+    long long rows, Strides os, Strides dos) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * DELTA_WARPS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int qd = lane & 3;
-  const int bhk = blockIdx.x;
-  const int b = bhk / Hkv;
-  const int hk = bhk - b * Hkv;
-  const int kt0 = blockIdx.y * TC_BK;
-  const int rg = warp & 1;     // key rows 16 rg .. 16 rg + 15 of the block
-  const int cg = warp >> 1;    // phase 1: queries 16 cg ..; phase 2:
-                               // 16-column blocks cg, cg + 4, ...
-  const int key_a = kt0 + 16 * rg + g;
-  const int key_b = key_a + 8;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);   // TC_BK x ld
-  bf16* v_s = k_s + TC_BK * ld;                     // TC_BK x ld
-  bf16* q_s = v_s + TC_BK * ld;                     // TC_BQ x ld
-  bf16* do_s = q_s + TC_BQ * ld;                    // TC_BQ x ld
-  bf16* pt_s = do_s + TC_BQ * ld;                   // TC_BK x ldp: P^T
-  bf16* dst_s = pt_s + TC_BK * ldp;                 // TC_BK x ldp: dS^T
-  float* lse_s = reinterpret_cast<float*>(dst_s + TC_BK * ldp);  // log2
-  float* dl_s = lse_s + TC_BQ;
-
-  stage_rows<THREADS>(k_s, k + b * ks.b + hk * ks.h, ks.s, kt0, TC_BK, Sk,
-                      dh, ld);
-  stage_rows<THREADS>(v_s, v + b * vs.b + hk * vs.h, vs.s, kt0, TC_BK, Sk,
-                      dh, ld);
-  tc::cp_async_commit();
-
-  float dk_acc[2 * NB][4], dv_acc[2 * NB][4];
+  if (r >= rows) return;
+  const long long bh = r / Sq_pad;
+  const int i = static_cast<int>(r - bh * Sq_pad);
+  if (i >= Sq) {
+    if (lane == 0) lse2[r] = delta[r] = 0.0f;
+    return;
+  }
+  const int b = static_cast<int>(bh / H);
+  const int h = static_cast<int>(bh - static_cast<long long>(b) * H);
+  const bf16* orow = o + b * os.b + h * os.h + i * os.s;
+  const bf16* drow = dout + b * dos.b + h * dos.h + i * dos.s;
+  float acc = 0.0f;
+  for (int c = 8 * lane; c < dh; c += 256) {
+    const uint4 x = *reinterpret_cast<const uint4*>(orow + c);
+    const uint4 y = *reinterpret_cast<const uint4*>(drow + c);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-  for (int i = 0; i < 2 * NB; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.0f;
-  const int ao = a_off(lane, ld);
-  const int bno = bn_off(lane, ld);
-  const int bko = bk_off(lane, ld);
-  const int aop = a_off(lane, ldp);
-  // causal: queries before the block's first key see none of its keys
-  const int q_first = causal ? kt0 / TC_BQ * TC_BQ : 0;
-
-  for (int hi = 0; hi < group; ++hi) {
-    const int h = hk * group + hi;
-    const long long row0 = (static_cast<long long>(b) * H + h) * Sq;
-    for (int qt0 = q_first; qt0 < Sq; qt0 += TC_BQ) {
-      __syncthreads();  // the previous tile's phase 2 is done
-      stage_rows<THREADS>(q_s, q + b * qs.b + h * qs.h, qs.s, qt0, TC_BQ, Sq,
-                          dh, ld);
-      stage_rows<THREADS>(do_s, dout + b * dos.b + h * dos.h, dos.s, qt0,
-                          TC_BQ, Sq, dh, ld);
-      tc::cp_async_commit();
-      for (int i = threadIdx.x; i < TC_BQ; i += THREADS) {
-        const int r = qt0 + i;
-        lse_s[i] = r < Sq ? lse[row0 + r] * LOG2E : 0.0f;
-        dl_s[i] = r < Sq ? delta[row0 + r] : 0.0f;
-      }
-      tc::cp_async_wait<0>();   // K, V (first time) and this tile's Q, dO
-      __syncthreads();
-
-      // ---- phase 1: S^T, dP^T of keys 16 rg .. x queries 16 cg .. -------
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < DM / 16; ++kk) {
-        if (!EXACT && kk * 16 >= dh) break;
-        uint32_t a[4], bq[4];
-        tc::ldsm_x4(a, k_s + 16 * rg * ld + kk * 16 + ao);
-        tc::ldsm_x4(bq, q_s + 16 * cg * ld + kk * 16 + bno);
-        tc::mma_bf16(s[0], a, bq[0], bq[1]);
-        tc::mma_bf16(s[1], a, bq[2], bq[3]);
-        tc::ldsm_x4(a, v_s + 16 * rg * ld + kk * 16 + ao);
-        tc::ldsm_x4(bq, do_s + 16 * cg * ld + kk * 16 + bno);
-        tc::mma_bf16(dp[0], a, bq[0], bq[1]);
-        tc::mma_bf16(dp[1], a, bq[2], bq[3]);
-      }
-      // P^T = 2^(s c2 - lse2) and dS^T, each rounded to bf16 (a masked
-      // pair is an explicit 0), into shared memory
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int key = half ? key_b : key_a;
-          const int col = 16 * cg + 8 * nt + 2 * qd;   // query in the tile
-          float pv[2], dsv[2];
-#pragma unroll
-          for (int e2 = 0; e2 < 2; ++e2) {
-            const int qc = col + e2;
-            const int qi = qt0 + qc;
-            const bool live = qi < Sq && key < Sk && !(causal && key > qi);
-            const float x = s[nt][2 * half + e2];
-            const float p = live ? __bfloat162float(__float2bfloat16_rn(
-                                       tc::exp2_approx(fmaf(
-                                           x, scale_log2, -lse_s[qc]))))
-                                 : 0.0f;
-            pv[e2] = p;
-            dsv[e2] = p * (dp[nt][2 * half + e2] - dl_s[qc]);
-          }
-          const int row = 16 * rg + g + 8 * half;
-          *reinterpret_cast<uint32_t*>(pt_s + row * ldp + col) =
-              tc::pack_bf16(pv[0], pv[1]);
-          *reinterpret_cast<uint32_t*>(dst_s + row * ldp + col) =
-              tc::pack_bf16(dsv[0], dsv[1]);
-        }
-      __syncthreads();
-
-      // ---- phase 2: dV += P^T dO, dK += dS^T Q on this warp's columns ---
-#pragma unroll
-      for (int kq = 0; kq < TC_BQ / 16; ++kq) {
-        uint32_t ap[4], ad[4];
-        tc::ldsm_x4(ap, pt_s + 16 * rg * ldp + kq * 16 + aop);
-        tc::ldsm_x4(ad, dst_s + 16 * rg * ldp + kq * 16 + aop);
-#pragma unroll
-        for (int j = 0; j < NB; ++j) {
-          const int cb = cg + 4 * j;
-          if (cb * 16 >= dh) break;            // uniform in the warp
-          uint32_t bf[4];
-          tc::ldsm_x4_t(bf, do_s + kq * 16 * ld + cb * 16 + bko);
-          tc::mma_bf16(dv_acc[2 * j], ap, bf[0], bf[1]);
-          tc::mma_bf16(dv_acc[2 * j + 1], ap, bf[2], bf[3]);
-          tc::ldsm_x4_t(bf, q_s + kq * 16 * ld + cb * 16 + bko);
-          tc::mma_bf16(dk_acc[2 * j], ad, bf[0], bf[1]);
-          tc::mma_bf16(dk_acc[2 * j + 1], ad, bf[2], bf[3]);
-        }
-      }
+    for (int j = 0; j < 4; ++j) {
+      const float2 a = tc::unpack_bf16(xs[j]);
+      const float2 d = tc::unpack_bf16(ys[j]);
+      acc = fmaf(d.x, a.x, acc);
+      acc = fmaf(d.y, a.y, acc);
     }
   }
-  tc::cp_async_wait<0>();   // the K/V copy, when no query tile ran
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(FULL, acc, off);
+  if (lane == 0) {
+    delta[r] = acc;
+    lse2[r] = lse[bh * Sq + i] * LOG2E;
+  }
+}
 
-  // ---- dK (times the scale, which Q did not carry) and dV, as bf16 ------
-  const long long base = (static_cast<long long>(b) * Hkv + hk) * Sk;
+// One consumer warpgroup of a dK/dV block.  DK = false owns dV: it computes
+// S^T = K Q^T, P^T, hands P^T to the other through shared memory and adds
+// P^T dO.  DK = true owns dK: it computes dP^T = V dO^T, takes P^T, forms
+// dS^T and adds dS^T Q.
+template <int DMP, bool DK>
+__device__ __forceinline__ void dkdv_consumer(
+    const uint8_t* k_s, const uint8_t* v_s, const uint8_t* st_s,
+    uint32_t* pt_s, const float* ld_s, uint64_t* kv_full, uint64_t* full,
+    uint64_t* empty, bf16* __restrict__ out, TcShape sh, int b, int hk,
+    int kt0, int q_first, int n_qt) {
+  constexpr int TILE = TC_BK * DMP * 2;
+  constexpr int PANEL = TC_BK * 128;
+  const int t = threadIdx.x & 127;
+  const int w = t >> 5;
+  const int lane = t & 31;
+  const int g = lane >> 2;
+  const int qd = lane & 3;
+  const int total = sh.group * n_qt;
+  // descriptors: the left operand K or V, K-major; each stage's tiles are
+  // described per iteration.  A step inside a view adds its byte offset / 16
+  // (shared addresses stay below 2^18: no carry out of the address field).
+  const uint64_t d_left = wg::desc(wg::smem_u32(DK ? v_s : k_s), 16, 1024);
+  const uint32_t st0 = wg::smem_u32(st_s);
+
+  float acc[DMP / 2];
 #pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const int cb = cg + 4 * j;
-    if (cb * 16 >= dh) break;
+  for (int i = 0; i < DMP / 2; ++i) acc[i] = 0.0f;
+  wg::bar_wait(kv_full, 0);
+
+  for (int it = 0; it < total; ++it) {
+    const int s = it % KV_STAGES;
+    const int hi = it / n_qt;
+    const int qt0 = q_first + (it - hi * n_qt) * TC_BQ;
+    const uint32_t q_t = st0 + 2 * s * TILE;
+    const uint32_t do_t = q_t + TILE;
+    // the first product's right operand (Q or dO, K-major) and the second's
+    // (dO or Q, MN-major)
+    const uint64_t d_r1 = wg::desc(DK ? do_t : q_t, 16, 1024);
+    const uint64_t d_r2 = wg::desc(DK ? q_t : do_t, PANEL, 1024);
+    wg::bar_wait(full + s, (it / KV_STAGES) & 1);
+    // each thread's 16 query columns: lse2 (for P) or delta, staged
+    float cv[16];
+    const float* lv = ld_s + s * 2 * TC_BQ + (DK ? TC_BQ : 0);
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int col = cb * 16 + 8 * t + 2 * qd;
-      const int i = 2 * j + t;
-      if (key_a < Sk) {
-        *reinterpret_cast<uint32_t*>(dk + (base + key_a) * dh + col) =
-            tc::pack_bf16(dk_acc[i][0] * scale, dk_acc[i][1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + (base + key_a) * dh + col) =
-            tc::pack_bf16(dv_acc[i][0], dv_acc[i][1]);
+    for (int j = 0; j < 8; ++j) {
+      const float2 x = *reinterpret_cast<const float2*>(lv + 8 * j + 2 * qd);
+      cv[2 * j] = x.x;
+      cv[2 * j + 1] = x.y;
+    }
+
+    // ---- S^T = K Q^T or dP^T = V dO^T, over the head width ----------------
+    float sa[32];
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < DMP / 16; ++kk) {
+      const uint32_t off = ((kk >> 2) * PANEL + (kk & 3) * 32) >> 4;
+      wg::mma_ss(sa, d_left + off, d_r1 + off, kk > 0);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::hold(sa);
+
+    // ---- P^T or dS^T, rounded to bf16, as A operands ----------------------
+    // element n of sa: key row kt0 + 16 w + g + 8 ((n >> 1) & 1), query
+    // column qt0 + 8 (n >> 2) + 2 qd + (n & 1)
+    uint32_t a[16];
+    if (!DK) {
+      // P^T rounded to bf16; only a tile on the diagonal or a ragged edge
+      // tests each element's mask
+      float p[32];
+#pragma unroll
+      for (int n = 0; n < 32; ++n)
+        p[n] = tc::exp2_approx(
+            fmaf(sa[n], sh.scale_log2, -cv[2 * (n >> 2) + (n & 1)]));
+      if ((sh.causal && qt0 < kt0 + TC_BK) || qt0 + TC_BQ > sh.Sq ||
+          kt0 + TC_BK > sh.Sk) {
+        const int key0 = kt0 + 16 * w + g;
+        const int q0 = qt0 + 2 * qd;
+#pragma unroll
+        for (int n = 0; n < 32; ++n) {
+          const int key = key0 + 8 * ((n >> 1) & 1);
+          const int qi = q0 + 8 * (n >> 2) + (n & 1);
+          const bool live = qi < sh.Sq && key < sh.Sk &&
+                            !(sh.causal && key > qi);
+          p[n] = live ? p[n] : 0.0f;
+        }
       }
-      if (key_b < Sk) {
-        *reinterpret_cast<uint32_t*>(dk + (base + key_b) * dh + col) =
-            tc::pack_bf16(dk_acc[i][2] * scale, dk_acc[i][3] * scale);
-        *reinterpret_cast<uint32_t*>(dv + (base + key_b) * dh + col) =
-            tc::pack_bf16(dv_acc[i][2], dv_acc[i][3]);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i] = tc::pack_bf16(p[2 * i], p[2 * i + 1]);
+      if (it > 0) wg::named_sync(2, CONSUMERS);   // the last P^T was read
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pt_s[i * 128 + t] = a[i];
+      wg::named_arrive(1, CONSUMERS);
+    } else {
+      wg::named_sync(1, CONSUMERS);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) a[i] = pt_s[i * 128 + t];
+      if (it + 1 < total) wg::named_arrive(2, CONSUMERS);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float2 p = tc::unpack_bf16(a[i]);
+        const int c = 2 * (i >> 1);
+        a[i] = tc::pack_bf16(p.x * (sa[2 * i] - cv[c]),
+                             p.y * (sa[2 * i + 1] - cv[c + 1]));
       }
+    }
+
+    // ---- dV += P^T dO or dK += dS^T Q, four steps of 16 queries -----------
+    wg::fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      const uint32_t ak[4] = {a[4 * kb], a[4 * kb + 1], a[4 * kb + 2],
+                              a[4 * kb + 3]};
+      wg::mma_rs_t(acc, ak, d_r2 + kb * (2048 >> 4), 1);
+    }
+    wg::commit();
+    wg::wait<0>();
+    wg::hold(acc);
+    wg::hold(a);
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(empty + s);
+  }
+
+  // ---- dK (times the scale, which Q did not carry) or dV, as bf16 ---------
+  const long long base = (static_cast<long long>(b) * sh.Hkv + hk) * sh.Sk;
+  const float f = DK ? sh.scale : 1.0f;
+#pragma unroll
+  for (int j = 0; j < DMP / 8; ++j) {
+    const int col = 8 * j + 2 * qd;
+    if (col >= sh.dh) break;
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int key = kt0 + 16 * w + g + 8 * h2;
+      if (key < sh.Sk)
+        *reinterpret_cast<uint32_t*>(out + (base + key) * sh.dh + col) =
+            tc::pack_bf16(acc[4 * j + 2 * h2] * f,
+                          acc[4 * j + 2 * h2 + 1] * f);
     }
   }
 }
 
-template <int DM, int BN, bool EXACT>
-__global__ void __launch_bounds__(TC_Q_WARPS * 32) fa_bwd_dq_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int H, int group, int Sq, int Sk, int dh_rt,
-    float scale, float scale_log2, int causal, Strides qs, Strides ks,
-    Strides vs, Strides dos) {
-  constexpr int THREADS = TC_Q_WARPS * 32;
-  const int dh = EXACT ? DM : dh_rt;
-  const int ld = dh + PAD;
+// dK and dV of TC_BK keys of one kv head: K, V resident, the group's query
+// heads' Q and dO tiles through the ring (DMP: the padded head width).
+template <int DMP>
+__global__ void __launch_bounds__(TC_THREADS, 1) fa_bwd_dkdv_tc_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse2,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, TcShape sh) {
+  constexpr int TILE = TC_BK * DMP * 2;
+  constexpr int PANEL = TC_BK * 128;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* k_s = align_swz(tc_smem);
+  uint8_t* v_s = k_s + TILE;
+  uint8_t* st_s = v_s + TILE;   // stage s: Q at 2 s TILE, dO after it
+  uint32_t* pt_s = reinterpret_cast<uint32_t*>(st_s + 2 * KV_STAGES * TILE);
+  float* ld_s = reinterpret_cast<float*>(pt_s + 16 * 128);   // lse2, delta
+  uint64_t* kv_full =
+      reinterpret_cast<uint64_t*>(ld_s + KV_STAGES * 2 * TC_BQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + KV_STAGES;
+
+  // heaviest first within a group of heads: under the causal mask the
+  // first key tiles see the most queries
+  int bhk, kt;
+  block_tile(sh.n_bh, sh.head_group, (sh.Sk + TC_BK - 1) / TC_BK, bhk, kt);
+  const int b = bhk / sh.Hkv;
+  const int hk = bhk - b * sh.Hkv;
+  const int kt0 = kt * TC_BK;
+  const int q_first = sh.causal ? kt0 : 0;   // causal: Sq == Sk
+  const int n_qt = (sh.Sq - q_first + TC_BQ - 1) / TC_BQ;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    wg::bar_init(kv_full, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      wg::bar_init(full + s, 1);
+      wg::bar_init(empty + s, CONSUMERS / 32);   // one arrival a warp
+    }
+    wg::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {   // the producer: one thread's copies
+    wg::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS) return;
+    // K and V in boxes of the dQ block's key tile (the maps are shared)
+    constexpr int KB = dq_key_tile(DMP);
+    wg::bar_expect(kv_full, 2 * TILE);
+    for (int p = 0; p < DMP / 64; ++p)
+      for (int r = 0; r < TC_BK; r += KB) {
+        const int off = p * PANEL + r * 128;
+        wg::tma_load(k_s + off, &tk, kv_full, 64 * p, kt0 + r, hk, b);
+        wg::tma_load(v_s + off, &tv, kv_full, 64 * p, kt0 + r, hk, b);
+      }
+    const int total = sh.group * n_qt;
+    for (int it = 0; it < total; ++it) {
+      const int s = it % KV_STAGES;
+      if (it >= KV_STAGES) wg::bar_wait(empty + s, (it / KV_STAGES - 1) & 1);
+      const int hi = it / n_qt;
+      const int qt0 = q_first + (it - hi * n_qt) * TC_BQ;
+      const int h = hk * sh.group + hi;
+      uint8_t* dst = st_s + 2 * s * TILE;
+      float* ld = ld_s + s * 2 * TC_BQ;
+      const long long row =
+          (static_cast<long long>(b) * sh.H + h) * sh.Sq_pad + qt0;
+      wg::bar_expect(full + s, 2 * TILE + 2 * TC_BQ * 4);
+      for (int p = 0; p < DMP / 64; ++p) {
+        wg::tma_load(dst + p * PANEL, &tq, full + s, 64 * p, qt0, h, b);
+        wg::tma_load(dst + TILE + p * PANEL, &tdo, full + s, 64 * p, qt0, h,
+                     b);
+      }
+      wg::bulk_load(ld, lse2 + row, TC_BQ * 4, full + s);
+      wg::bulk_load(ld + TC_BQ, delta + row, TC_BQ * 4, full + s);
+    }
+    return;
+  }
+  wg::regs_inc<CONSUMER_REGS>();
+  if (warp < 4)
+    dkdv_consumer<DMP, false>(k_s, v_s, st_s, pt_s, ld_s, kv_full, full,
+                              empty, dv, sh, b, hk, kt0, q_first, n_qt);
+  else
+    dkdv_consumer<DMP, true>(k_s, v_s, st_s, pt_s, ld_s, kv_full, full,
+                             empty, dk, sh, b, hk, kt0, q_first, n_qt);
+}
+
+// dQ of TC_QROWS query rows of one head, 64 a warpgroup: Q, dO resident,
+// the kv head's K and V tiles through the ring.
+template <int DMP>
+__global__ void __launch_bounds__(TC_THREADS, 1) fa_bwd_dq_tc_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse2,
+    const float* __restrict__ delta, bf16* __restrict__ dq, TcShape sh) {
+  constexpr int BN = dq_key_tile(DMP);
+  constexpr int QPANEL = TC_QROWS * 128;
+  constexpr int QTILE = DMP / 64 * QPANEL;
+  constexpr int KPANEL = BN * 128;
+  constexpr int KTILE = DMP / 64 * KPANEL;
+  extern __shared__ uint8_t tc_smem[];
+  uint8_t* q_s = align_swz(tc_smem);
+  uint8_t* do_s = q_s + QTILE;
+  uint8_t* st_s = do_s + QTILE;   // stage s: K at 2 s KTILE, V after it
+  uint64_t* qd_full =
+      reinterpret_cast<uint64_t*>(st_s + 2 * DQ_STAGES * KTILE);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
+
+  // heaviest first within a group of heads: under the causal mask the last
+  // query tiles see the most keys
+  const int n_rt = (sh.Sq + TC_QROWS - 1) / TC_QROWS;
+  int bh, i;
+  block_tile(sh.n_bh, sh.head_group, n_rt, bh, i);
+  const int r0 = (sh.causal ? n_rt - 1 - i : i) * TC_QROWS;
+  const int b = bh / sh.H;
+  const int h = bh - b * sh.H;
+  const int hk = h / sh.group;
+  const int n_keys = sh.causal ? min(sh.Sk, r0 + TC_QROWS) : sh.Sk;
+  const int n_kt = (n_keys + BN - 1) / BN;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    wg::bar_init(qd_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      wg::bar_init(full + s, 1);
+      wg::bar_init(empty + s, CONSUMERS / 32);
+    }
+    wg::bar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {   // the producer: one thread's copies
+    wg::regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS) return;
+    wg::bar_expect(qd_full, 2 * QTILE);
+    for (int p = 0; p < DMP / 64; ++p)
+      for (int half = 0; half < 2; ++half) {
+        const int off = p * QPANEL + half * (QPANEL / 2);
+        wg::tma_load(q_s + off, &tq, qd_full, 64 * p, r0 + 64 * half, h, b);
+        wg::tma_load(do_s + off, &tdo, qd_full, 64 * p, r0 + 64 * half, h,
+                     b);
+      }
+    for (int it = 0; it < n_kt; ++it) {
+      const int s = it % DQ_STAGES;
+      if (it >= DQ_STAGES) wg::bar_wait(empty + s, (it / DQ_STAGES - 1) & 1);
+      uint8_t* dst = st_s + 2 * s * KTILE;
+      wg::bar_expect(full + s, 2 * KTILE);
+      for (int p = 0; p < DMP / 64; ++p) {
+        wg::tma_load(dst + p * KPANEL, &tk, full + s, 64 * p, it * BN, hk, b);
+        wg::tma_load(dst + KTILE + p * KPANEL, &tv, full + s, 64 * p,
+                     it * BN, hk, b);
+      }
+    }
+    return;
+  }
+
+  // ---- a consumer warpgroup: query rows r0 + 64 wq .. r0 + 64 wq + 63 ------
+  wg::regs_inc<CONSUMER_REGS>();
+  // broadcast from lane 0, so that the compiler knows it uniform in the
+  // warp and keeps the descriptors built from it in uniform registers
+  const int wq = __shfl_sync(FULL, warp >> 2, 0);
+  const int t = threadIdx.x & 127;
+  const int w = t >> 5;
+  const int lane = t & 31;
   const int g = lane >> 2;
   const int qd = lane & 3;
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int hk = h / group;
-  const int r0 = blockIdx.y * TC_BM;
-
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // TC_BM x ld
-  bf16* do_s = q_s + TC_BM * ld;                    // TC_BM x ld
-  bf16* k_s = do_s + TC_BM * ld;                    // BN x ld
-  bf16* v_s = k_s + BN * ld;                        // BN x ld
-
-  stage_rows<THREADS>(q_s, q + b * qs.b + h * qs.h, qs.s, r0, TC_BM, Sq, dh,
-                      ld);
-  stage_rows<THREADS>(do_s, dout + b * dos.b + h * dos.h, dos.s, r0, TC_BM,
-                      Sq, dh, ld);
-  tc::cp_async_commit();
-
-  const int wr0 = r0 + 16 * warp;
-  const int row_a = wr0 + g;
+  const int wr0 = r0 + 64 * wq;
+  const int row_a = wr0 + 16 * w + g;
   const int row_b = row_a + 8;
-  const long long row0 = static_cast<long long>(bh) * Sq;
-  float lse2[2], dl[2];
+  const long long row0 = static_cast<long long>(bh) * sh.Sq;
+  float lr[2], dl[2];   // lse2 and delta of the two rows (0 past Sq)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = r ? row_b : row_a;
-    lse2[r] = row < Sq ? lse[row0 + row] * LOG2E : 0.0f;
-    dl[r] = row < Sq ? delta[row0 + row] : 0.0f;
+    const long long row = static_cast<long long>(bh) * sh.Sq_pad +
+                          min(r ? row_b : row_a, sh.Sq_pad - 1);
+    lr[r] = lse2[row];
+    dl[r] = delta[row];
   }
-  const int n_keys = causal ? min(Sk, r0 + TC_BM) : Sk;
-  const int warp_keys = wr0 >= Sq ? 0 : (causal ? min(Sk, wr0 + 16) : Sk);
-  const int ao = a_off(lane, ld);
-  const int bno = bn_off(lane, ld);
-  const int bko = bk_off(lane, ld);
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
+  // keys any row of this warpgroup sees, and the key tiles holding them (a
+  // prefix of the block's)
+  const int wg_keys = sh.causal ? min(sh.Sk, wr0 + 64) : sh.Sk;
+  const int n_mine = min(n_kt, (wg_keys + BN - 1) / BN);
+  // descriptors (see the dK/dV block's): this warpgroup's rows of Q and dO,
+  // and each stage's K and V
+  const uint64_t d_q = wg::desc(wg::smem_u32(q_s) + wq * (QPANEL / 2), 16,
+                                1024);
+  const uint64_t d_do = wg::desc(wg::smem_u32(do_s) + wq * (QPANEL / 2), 16,
+                                 1024);
+  const uint32_t st0 = wg::smem_u32(st_s);
+  const auto k_tile = [&](int t) {
+    return st0 + 2 * (t % DQ_STAGES) * KTILE;
+  };
+  const auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(empty + t % DQ_STAGES);
+  };
 
-  float acc[DM / 8][4];
+  float acc[DMP / 2];
 #pragma unroll
-  for (int i = 0; i < DM / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  for (int j = 0; j < DMP / 2; ++j) acc[j] = 0.0f;
+  wg::bar_wait(qd_full, 0);
 
-  for (int kt0 = 0; kt0 < n_keys; kt0 += BN) {
-    __syncthreads();  // the previous tile consumed
-    stage_rows<THREADS>(k_s, kb, ks.s, kt0, BN, Sk, dh, ld);
-    stage_rows<THREADS>(v_s, vb, vs.s, kt0, BN, Sk, dh, ld);
-    tc::cp_async_commit();
-    tc::cp_async_wait<0>();   // Q, dO (first time) and this tile
-    __syncthreads();
-    if (kt0 >= warp_keys) continue;   // uniform in the warp
-    float s[BN / 8][4], dp[BN / 8][4];
+  // Key tile t: S = Q K^T and dP = dO V^T over the head width, issued as
+  // two groups behind tile t - 1's dQ product; P (the exponentials) while
+  // dP runs; then dS = P (dP - delta), rounded to bf16 as A operands, and
+  // dQ += dS K, left running into the next tile's products.
+  float sa[BN / 2], pa[BN / 2];
+  for (int t = 0; t < n_mine; ++t) {
+    wg::bar_wait(full + t % DQ_STAGES, (t / DQ_STAGES) & 1);
+    const uint32_t k_t = k_tile(t);
+    const uint64_t d_k = wg::desc(k_t, 16, 1024);
+    const uint64_t d_v = wg::desc(k_t + KTILE, 16, 1024);
+    wg::fence();
 #pragma unroll
-    for (int i = 0; i < BN / 8; ++i)
+    for (int kk = 0; kk < DMP / 16; ++kk) {
+      const uint32_t qo = ((kk >> 2) * QPANEL + (kk & 3) * 32) >> 4;
+      const uint32_t ko = ((kk >> 2) * KPANEL + (kk & 3) * 32) >> 4;
+      wg::mma_ss(sa, d_q + qo, d_k + ko, kk > 0);
+    }
+    wg::commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.0f;
-    // ---- S = Q K^T, dP = dO V^T (f32) --------------------------------------
+    for (int kk = 0; kk < DMP / 16; ++kk) {
+      const uint32_t qo = ((kk >> 2) * QPANEL + (kk & 3) * 32) >> 4;
+      const uint32_t ko = ((kk >> 2) * KPANEL + (kk & 3) * 32) >> 4;
+      wg::mma_ss(pa, d_do + qo, d_v + ko, kk > 0);
+    }
+    wg::commit();
+    wg::wait<1>();   // tile t - 1's dQ product and tile t's S
+    wg::hold(sa);
+    wg::hold(acc);
+    if (t > 0) release(t - 1);
+    // P rounded to bf16 into sa; only a tile on the diagonal or a ragged
+    // edge tests each element's mask (element n: row row_a + 8 ((n >> 1) &
+    // 1), key kt0 + 8 (n >> 2) + 2 qd + (n & 1))
 #pragma unroll
-    for (int kk = 0; kk < DM / 16; ++kk) {
-      if (!EXACT && kk * 16 >= dh) break;
-      uint32_t a[4];
-      tc::ldsm_x4(a, q_s + 16 * warp * ld + kk * 16 + ao);
+    for (int n = 0; n < BN / 2; ++n)
+      sa[n] = __bfloat162float(__float2bfloat16_rn(tc::exp2_approx(
+          fmaf(sa[n], sh.scale_log2, -lr[(n >> 1) & 1]))));
+    const int kt0 = t * BN;
+    if ((sh.causal && kt0 + BN > wr0) || kt0 + BN > sh.Sk ||
+        wr0 + 64 > sh.Sq) {
 #pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t bf[4];
-        tc::ldsm_x4(bf, k_s + np * 16 * ld + kk * 16 + bno);
-        tc::mma_bf16(s[2 * np], a, bf[0], bf[1]);
-        tc::mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
-      }
-      tc::ldsm_x4(a, do_s + 16 * warp * ld + kk * 16 + ao);
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t bf[4];
-        tc::ldsm_x4(bf, v_s + np * 16 * ld + kk * 16 + bno);
-        tc::mma_bf16(dp[2 * np], a, bf[0], bf[1]);
-        tc::mma_bf16(dp[2 * np + 1], a, bf[2], bf[3]);
+      for (int n = 0; n < BN / 2; ++n) {
+        const int row = (n >> 1) & 1 ? row_b : row_a;
+        const int col = kt0 + 8 * (n >> 2) + 2 * qd + (n & 1);
+        const bool live = row < sh.Sq && col < sh.Sk &&
+                          !(sh.causal && col > row);
+        sa[n] = live ? sa[n] : 0.0f;
       }
     }
-    // ---- P rounded to bf16, then dS (into s); a masked pair is 0 ---------
+    wg::wait<0>();   // dP
+    wg::hold(pa);
+    // dS = P (dP - delta), rounded to bf16 as A operands; dQ += dS K
+    uint32_t a[BN / 4];
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kt0 + nt * 8 + 2 * qd + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const bool live = row < Sq && col < Sk && !(causal && col > row);
-        const float p = live ? __bfloat162float(__float2bfloat16_rn(
-                                   tc::exp2_approx(fmaf(
-                                       s[nt][e], scale_log2, -lse2[e >> 1]))))
-                             : 0.0f;
-        s[nt][e] = p * (dp[nt][e] - dl[e >> 1]);
-      }
-    // ---- dQ += dS K, dS rounded to bf16 in registers ----------------------
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      uint32_t pa[4];
-      pa[0] = tc::pack_bf16(s[2 * j][0], s[2 * j][1]);
-      pa[1] = tc::pack_bf16(s[2 * j][2], s[2 * j][3]);
-      pa[2] = tc::pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      pa[3] = tc::pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int dp2 = 0; dp2 < DM / 16; ++dp2) {
-        if (!EXACT && dp2 * 16 >= dh) break;
-        uint32_t bf[4];
-        tc::ldsm_x4_t(bf, k_s + j * 16 * ld + dp2 * 16 + bko);
-        tc::mma_bf16(acc[2 * dp2], pa, bf[0], bf[1]);
-        tc::mma_bf16(acc[2 * dp2 + 1], pa, bf[2], bf[3]);
-      }
+    for (int i2 = 0; i2 < BN / 4; ++i2) {
+      const int n = 2 * i2;
+      const int r = (n >> 1) & 1;
+      a[i2] = tc::pack_bf16(sa[n] * (pa[n] - dl[r]),
+                            sa[n + 1] * (pa[n + 1] - dl[r]));
     }
-  }
-  tc::cp_async_wait<0>();   // the Q, dO copy, when no key tile ran
-
-  // ---- dQ = scale acc, as bf16 --------------------------------------------
+    const uint64_t d_kmn = wg::desc(k_t, KPANEL, 1024);
+    wg::fence();
 #pragma unroll
-  for (int nt = 0; nt < DM / 8; ++nt) {
-    if (!EXACT && nt * 8 >= dh) break;
-    const int c = nt * 8 + 2 * qd;
-    if (row_a < Sq)
-      *reinterpret_cast<uint32_t*>(dq + (row0 + row_a) * dh + c) =
-          tc::pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
-    if (row_b < Sq)
-      *reinterpret_cast<uint32_t*>(dq + (row0 + row_b) * dh + c) =
-          tc::pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
+    for (int kb = 0; kb < BN / 16; ++kb) {
+      const uint32_t ak[4] = {a[4 * kb], a[4 * kb + 1], a[4 * kb + 2],
+                              a[4 * kb + 3]};
+      wg::mma_rs_t(acc, ak, d_kmn + kb * (2048 >> 4), 1);
+    }
+    wg::commit();
+  }
+  wg::wait<0>();
+  wg::hold(acc);
+  if (n_mine > 0) release(n_mine - 1);
+  for (int t = n_mine; t < n_kt; ++t) {   // tiles past this warpgroup's
+    wg::bar_wait(full + t % DQ_STAGES, (t / DQ_STAGES) & 1);   // keys
+    release(t);
+  }
+
+  // ---- dQ = scale acc, as bf16 ----------------------------------------------
+#pragma unroll
+  for (int j = 0; j < DMP / 8; ++j) {
+    const int col = 8 * j + 2 * qd;
+    if (col >= sh.dh) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_b : row_a;
+      if (row < sh.Sq)
+        *reinterpret_cast<uint32_t*>(dq + (row0 + row) * sh.dh + col) =
+            tc::pack_bf16(acc[4 * j + 2 * r] * sh.scale,
+                          acc[4 * j + 2 * r + 1] * sh.scale);
+    }
   }
 }
 
-template <int DM, bool EXACT>
+// set_smem once a device for each kernel (whose shared memory its template
+// arguments fix; `done` is that kernel's own): the call costs host time.
+template <typename F>
+cudaError_t set_smem_once(F* fn, size_t smem, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = set_smem(fn, smem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no libcuda link).
+using EncodeFn = decltype(&cuTensorMapEncodeTiled);
+
+EncodeFn encode_fn() {
+  static const EncodeFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a (B, heads, S, dh) bf16 view with element strides st:
+// boxes of 64 columns x `rows` rows of one (batch, head), 128-byte swizzle,
+// zeros past each extent.
+bool tensor_map(CUtensorMap* map, const void* p, int B, int heads, int S,
+                int dh, Strides st, int rows) {
+  const EncodeFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  // an extent of 1 is never stepped over: any legal stride does
+  const cuuint64_t strides[3] = {
+      S > 1 ? static_cast<cuuint64_t>(st.s) * 2 : 16,
+      heads > 1 ? static_cast<cuuint64_t>(st.h) * 2 : 16,
+      B > 1 ? static_cast<cuuint64_t>(st.b) * 2 : 16};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DMP>
 cudaError_t launch_tc(const Args& a, cudaStream_t st) {
-  cudaError_t err = launch_delta<bf16>(a.o, a.dout, a.delta, a.B, a.H, a.Sq,
-                                       a.dh, a.os, a.dos, st);
+  const int Sq_pad = (a.Sq + TC_BQ - 1) / TC_BQ * TC_BQ;
+  const long long rows = static_cast<long long>(a.B) * a.H * Sq_pad;
+  float* lse2 = a.delta;   // the workspace: lse2, then delta
+  float* delta = a.delta + rows;
+  fa_bwd_delta_tc_kernel<<<static_cast<unsigned>(
+                               (rows + DELTA_WARPS - 1) / DELTA_WARPS),
+                           DELTA_WARPS * 32, 0, st>>>(
+      static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.lse,
+      lse2, delta, a.H, a.Sq, Sq_pad, a.dh, rows, a.os, a.dos);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (a.Sk == 0)   // no key: dq is 0, dk and dv are empty
+    return cudaMemsetAsync(a.dq, 0,
+                           sizeof(bf16) * a.B * a.H * a.Sq * a.dh, st);
+  constexpr int BN = dq_key_tile(DMP);
+  CUtensorMap tq, tdo, tk, tv;   // boxes of 64 query rows, of BN keys
+  if (!tensor_map(&tq, a.q, a.B, a.H, a.Sq, a.dh, a.qs, TC_BQ) ||
+      !tensor_map(&tdo, a.dout, a.B, a.H, a.Sq, a.dh, a.dos, TC_BQ) ||
+      !tensor_map(&tk, a.k, a.B, a.Hkv, a.Sk, a.dh, a.ks, BN) ||
+      !tensor_map(&tv, a.v, a.B, a.Hkv, a.Sk, a.dh, a.vs, BN))
+    return cudaErrorInvalidValue;
   const int group = a.H / a.Hkv;
-  const float scale_log2 = a.scale * LOG2E;
-  if (a.Sk > 0) {
+  TcShape sh{a.B * a.Hkv, 1,       a.H,             a.Hkv,   group,
+             a.Sq,        a.Sk,    a.dh,            Sq_pad,  a.scale,
+             a.scale * LOG2E,      a.causal};
+  // heads a group: the query heads' Q and dO of a dK/dV block's kv head,
+  // the kv head's K and V of a dQ block, within L2_SHARE
+  const auto head_group = [&](long long bytes, int n_bh) {
+    return static_cast<int>(
+        std::max(1LL, std::min<long long>(n_bh, L2_SHARE / bytes)));
+  };
+  sh.head_group = head_group(4LL * group * a.Sq * DMP, sh.n_bh);
+  const long long kv_blocks =
+      static_cast<long long>(sh.n_bh) * ((a.Sk + TC_BK - 1) / TC_BK);
+  const long long q_blocks = static_cast<long long>(a.B) * a.H *
+                             ((a.Sq + TC_QROWS - 1) / TC_QROWS);
+  if (kv_blocks > INT_MAX || q_blocks > INT_MAX)
+    return cudaErrorInvalidConfiguration;
+  {
     const size_t smem = tc_dkdv_smem_bytes(a.dh);
-    auto fn = fa_bwd_dkdv_tc_kernel<DM, EXACT>;
-    err = set_smem(fn, smem);
+    auto fn = fa_bwd_dkdv_tc_kernel<DMP>;
+    static bool done[64] = {};
+    err = set_smem_once(fn, smem, done);
     if (err != cudaSuccess) return err;
-    const dim3 grid(a.B * a.Hkv, (a.Sk + TC_BK - 1) / TC_BK);
-    fn<<<grid, TC_KV_WARPS * 32, smem, st>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
-        a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-        a.H, a.Hkv, group, a.Sq, a.Sk, a.dh, a.scale, scale_log2, a.causal,
-        a.qs, a.ks, a.vs, a.dos);
+    fn<<<static_cast<unsigned>(kv_blocks), TC_THREADS, smem, st>>>(
+        tq, tdo, tk, tv, lse2, delta, static_cast<bf16*>(a.dk),
+        static_cast<bf16*>(a.dv), sh);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
+  sh.n_bh = a.B * a.H;
+  sh.head_group = head_group(4LL * a.Sk * DMP, sh.n_bh);
   const size_t smem = tc_dq_smem_bytes(a.dh);
-  auto fn = fa_bwd_dq_tc_kernel<DM, key_tile(DM), EXACT>;
-  err = set_smem(fn, smem);
+  auto fn = fa_bwd_dq_tc_kernel<DMP>;
+  static bool done[64] = {};
+  err = set_smem_once(fn, smem, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B * a.H, (a.Sq + TC_BM - 1) / TC_BM);
-  fn<<<grid, TC_Q_WARPS * 32, smem, st>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
-      a.delta, static_cast<bf16*>(a.dq), a.H, group, a.Sq, a.Sk, a.dh,
-      a.scale, scale_log2, a.causal, a.qs, a.ks, a.vs, a.dos);
+  fn<<<static_cast<unsigned>(q_blocks), TC_THREADS, smem, st>>>(
+      tq, tdo, tk, tv, lse2, delta, static_cast<bf16*>(a.dq), sh);
   return cudaGetLastError();
 }
 
@@ -942,7 +1237,10 @@ int flash_attention_bwd_launch(
 
 // The "tensor_core" design: as flash_attention_bwd_launch, bf16 only, and
 // needs dh % 16 == 0, dh <= 256, and every pointer and (batch, head, row)
-// stride 16-byte aligned.  Returns the CUDA error code (0 on success).
+// stride 16-byte aligned and every stride positive (TMA's tensor maps).
+// Its workspace `delta` holds 2 B H Sq_pad floats, Sq_pad = Sq rounded up
+// to a multiple of 64 (lse in log2 units, then delta).  Returns the CUDA
+// error code (0 on success).
 int flash_attention_bwd_tc_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -959,18 +1257,15 @@ int flash_attention_bwd_tc_launch(
                         static_cast<const void*>(dk),
                         static_cast<const void*>(dv)})
     ok = ok && aligned16(p);
-  for (long long s : st) ok = ok && s % 8 == 0;
+  for (long long s : st) ok = ok && s % 8 == 0 && s > 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0 || Sq == 0) return 0;
   const Args a = make_args(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
                            Hkv, Sq, Sk, dh, scale, causal, st);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh == 64) return launch_tc<64, true>(a, s);
-  if (dh < 64) return launch_tc<64, false>(a, s);
-  if (dh == 128) return launch_tc<128, true>(a, s);
-  if (dh < 128) return launch_tc<128, false>(a, s);
-  if (dh == 256) return launch_tc<256, true>(a, s);
-  return launch_tc<256, false>(a, s);
+  if (dh <= 64) return launch_tc<64>(a, s);
+  if (dh <= 128) return launch_tc<128>(a, s);
+  return launch_tc<256>(a, s);
 }
 
 // Dynamic shared bytes of one block: design 0 "cuda_core", 1

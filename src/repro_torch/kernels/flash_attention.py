@@ -14,8 +14,10 @@ which the gradient needs.
 the gradient of the reference's custom VJP (``models/flash_xla.py``
 ``_bwd_vjp``), or on CPU tensors its plain version,
 ``ref.flash_attention_bwd_ref``; ``bwd_plan`` picks its design by the
-same rule.  Each wrapper counts its launches in ``launches`` and, per
-design, in ``launches_by_design``.
+same rule ("tensor_core" there is bf16 on ``wgmma``, fed by TMA through
+a ring of stages, and also needs every stride positive).  Each wrapper
+counts its launches in ``launches`` and, per design, in
+``launches_by_design``.
 """
 from __future__ import annotations
 
@@ -33,6 +35,12 @@ SMEM_LIMIT = 232_448   # shared memory a block may have on Hopper
 TC_ROWS = 64           # query rows a tensor-core block owns, 16 a warp
 CC_ROWS = 16           # query rows a CUDA-core block owns, 1 a warp
 CC_TILE_K = 32         # keys a CUDA-core block stages at a time
+# the gradient's tensor-core design (csrc/flash_attention_bwd.cu)
+BWD_TC_KEYS = 64       # keys a dK/dV block owns
+BWD_TC_QUERIES = 64    # queries of one of its stages
+BWD_TC_ROWS = 128      # query rows a dQ block owns, 64 a warpgroup
+BWD_KV_STAGES = 2      # staged Q, dO tile pairs of a dK/dV block
+BWD_DQ_STAGES = 3      # staged K, V tile pairs of a dQ block
 DESIGNS = ("tensor_core", "cuda_core")
 
 _P = ctypes.c_void_p
@@ -198,31 +206,58 @@ class BwdPlan(NamedTuple):
     """How one gradient call runs, as ``csrc/flash_attention_bwd.cu``
     sizes it: a dK/dV block owns ``key_rows`` keys and stages
     ``query_tile`` queries at a time; a dQ block owns ``dq_rows`` query
-    rows and stages ``dq_key_tile`` keys at a time."""
+    rows and stages ``dq_key_tile`` keys at a time; ``dkdv_stages`` and
+    ``dq_stages`` tiles are in flight (the tensor-core design's rings; 1:
+    staged, then used); the caller's float32 workspace holds
+    ``workspace_rows`` values of each (batch, head)."""
     design: str        # "tensor_core" or "cuda_core"
     key_rows: int
     query_tile: int
     dq_rows: int
     dq_key_tile: int
+    dkdv_stages: int
+    dq_stages: int
     dkdv_smem_bytes: int
     dq_smem_bytes: int
+    workspace_rows: int
+
+
+def padded_width(dh: int) -> int:
+    """The head width the gradient's tensor-core design computes at:
+    whole 64-column panels of its 128-byte-swizzled tiles (64, 128 or
+    256; the columns past dh are zeros)."""
+    return 64 if dh <= 64 else 128 if dh <= 128 else 256
 
 
 def bwd_plan(dtype: torch.dtype, dh: int, Sq: int, Sk: int, *, strides=(),
              aligned: bool = True) -> BwdPlan:
     """The gradient's design and sizing, by ``plan``'s rule over the
-    (batch, head, row) strides of q, k, v, o and dout.  Raises
-    ValueError for an input neither design takes."""
-    if _tensor_core(dtype, dh, strides, aligned):
-        kt = key_tile(dh)
-        p = BwdPlan("tensor_core", 32, 64, TC_ROWS, kt,
-                    2 * (32 + 64) * (dh + 8) * 2 + 2 * 32 * (64 + 8) * 2
-                    + 2 * 64 * 4,
-                    (2 * TC_ROWS + 2 * kt) * (dh + 8) * 2)
+    (batch, head, row) strides of q, k, v, o and dout, each also positive
+    for the tensor-core design (its TMA tensor maps step every dimension).
+    Its shared memory: 1,024 bytes of slack to align the swizzled tiles,
+    the tiles (dK/dV: K, V and two pairs of Q, dO tiles of 64 rows; dQ:
+    Q, dO of 128 rows and three pairs of K, V tiles), P^T's 8 KB
+    hand-over between the dK/dV block's two warpgroups and each dK/dV
+    stage's 64 lse and delta values, and 64 bytes of mbarriers.  Its
+    workspace: the lse in log2 units and delta, each padded with zeros to
+    whole tiles of 64 rows (delta alone, Sq rows, for the CUDA-core
+    design).  Raises ValueError for an input neither design takes."""
+    if (_tensor_core(dtype, dh, strides, aligned)
+            and all(s > 0 for s in strides)):
+        dmp, kt = padded_width(dh), key_tile(dh)
+        tile = BWD_TC_KEYS * dmp * 2
+        p = BwdPlan("tensor_core", BWD_TC_KEYS, BWD_TC_QUERIES, BWD_TC_ROWS,
+                    kt, BWD_KV_STAGES, BWD_DQ_STAGES,
+                    1024 + (2 + 2 * BWD_KV_STAGES) * tile
+                    + BWD_TC_KEYS * BWD_TC_QUERIES * 2
+                    + BWD_KV_STAGES * 2 * BWD_TC_QUERIES * 4 + 64,
+                    1024 + (2 * BWD_TC_ROWS + 2 * BWD_DQ_STAGES * kt) * dmp
+                    * 2 + 64,
+                    2 * -(-Sq // BWD_TC_QUERIES) * BWD_TC_QUERIES)
     else:
-        p = BwdPlan("cuda_core", 8, 32, CC_ROWS, CC_TILE_K,
+        p = BwdPlan("cuda_core", 8, 32, CC_ROWS, CC_TILE_K, 1, 1,
                     (2 * 8 * dh + 2 * 32 * (dh + 4) + 2 * 32) * 4,
-                    (2 * CC_ROWS * dh + 2 * CC_TILE_K * (dh + 4)) * 4)
+                    (2 * CC_ROWS * dh + 2 * CC_TILE_K * (dh + 4)) * 4, Sq)
     _need(-(-Sk // p.key_rows) <= MAX_ROW_TILES, f"Sk={Sk} too long")
     _need(-(-Sq // p.dq_rows) <= MAX_ROW_TILES, f"Sq={Sq} too long")
     for smem in (p.dkdv_smem_bytes, p.dq_smem_bytes):
@@ -272,7 +307,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         t.data_ptr() % 16 == 0 for t in (q, k, v, o, dout, dq, dk, dv)))
     if B * H * Sq == 0:        # no query: nothing reaches k or v
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, p.workspace_rows), dtype=torch.float32,
+                        device=q.device)
     ptrs = tuple(t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq,
                                         dk, dv))
     shape = (B, H, Hkv, Sq, Sk, dh, float(scale), int(causal))

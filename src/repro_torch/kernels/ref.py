@@ -218,6 +218,94 @@ def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_blocked_ref(q, k, v, o, lse, dout, *,
+                                    causal: bool = True,
+                                    scale: float | None = None,
+                                    key_rows: int = 64, query_tile: int = 64,
+                                    dq_rows: int = 128,
+                                    dq_key_tile: int | None = None):
+    """The flash gradient in the tiling and summation order of the
+    "tensor_core" design of ``csrc/flash_attention_bwd.cu``, in plain
+    PyTorch (the same function as ``flash_attention_bwd_ref``; used by
+    tests, not on the main path).
+
+    dK, dV: per tile of ``key_rows`` keys of each kv head, a float32 sum
+    over the group's query heads in order and, for each, over its tiles of
+    ``query_tile`` queries in order (causal: from the tile holding the
+    first key on) of P^T dO and dS^T q, S^T and dP^T recomputed for each
+    pair of tiles; dk times the scale at the end.  dQ: per tile of
+    ``dq_rows`` query rows, a sum over tiles of ``dq_key_tile`` keys in
+    order (64 up to dh = 128, 32 above; causal: up to the tile's last
+    row) of dS k, times the scale at the end.  P and dS are rounded to
+    the inputs' dtype, as the plain version and the kernel round them
+    (bf16 inputs: the kernel's rounding points).  Returns (dq, dk, dv) in
+    the inputs' dtypes."""
+    B, H, Sq, dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = H // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(dh)
+    if dq_key_tile is None:
+        dq_key_tile = 64 if dh <= 128 else 32
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    delta = torch.sum(dout.float() * o.float(), dim=-1)
+    lse = lse.float()
+    idx = lambda *a: torch.arange(*a, device=q.device)
+
+    def grads(s, dp, live, lse_r, delta_r):
+        """P and dS from the unscaled scores s and dP (0 where not
+        live)."""
+        p = torch.exp(s * scale - lse_r)
+        if causal:
+            p = torch.where(live, p, torch.zeros_like(p))
+        p = p.to(v.dtype).float()
+        return p, (p * (dp - delta_r)).to(k.dtype).float()
+
+    dk = torch.zeros((B, Hkv, Sk, dh), device=q.device)
+    dv = torch.zeros_like(dk)
+    for kt0 in range(0, Sk, key_rows):
+        keys = idx(kt0, min(Sk, kt0 + key_rows))
+        ks, vs = kf[:, :, keys], vf[:, :, keys]
+        acc_k = torch.zeros_like(ks)
+        acc_v = torch.zeros_like(vs)
+        q_first = kt0 // query_tile * query_tile if causal else 0
+        for hi in range(group):
+            heads = idx(Hkv) * group + hi   # kv head j's hi-th query head
+            for qt0 in range(q_first, Sq, query_tile):
+                qry = idx(qt0, min(Sq, qt0 + query_tile))
+                qs = qf[:, heads][:, :, qry]
+                dos = dof[:, heads][:, :, qry]
+                # transposed: rows are keys, columns queries
+                pt, dst = grads(ks @ qs.transpose(-1, -2),
+                                vs @ dos.transpose(-1, -2),
+                                keys[:, None] <= qry[None, :],
+                                lse[:, heads][:, :, None, qry],
+                                delta[:, heads][:, :, None, qry])
+                acc_v = acc_v + pt @ dos
+                acc_k = acc_k + dst @ qs
+        dk[:, :, keys] = acc_k * scale
+        dv[:, :, keys] = acc_v
+
+    dq = torch.zeros((B, H, Sq, dh), device=q.device)
+    kv_of = idx(H) // group
+    for r0 in range(0, Sq, dq_rows):
+        rows = idx(r0, min(Sq, r0 + dq_rows))
+        qs, dos = qf[:, :, rows], dof[:, :, rows]
+        acc = torch.zeros_like(qs)
+        n_keys = min(Sk, r0 + dq_rows) if causal else Sk
+        for kt0 in range(0, n_keys, dq_key_tile):
+            cols = idx(kt0, min(Sk, kt0 + dq_key_tile))
+            ks = kf[:, kv_of][:, :, cols]
+            vs = vf[:, kv_of][:, :, cols]
+            _, ds = grads(qs @ ks.transpose(-1, -2),
+                          dos @ vs.transpose(-1, -2),
+                          cols[None, :] <= rows[:, None],
+                          lse[:, :, rows, None], delta[:, :, rows, None])
+            acc = acc + ds @ ks
+        dq[:, :, rows] = acc * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def ssd_scan_ref(x, a_log, b, c, dt):
     """Mamba-2 SSD scan, sequential (plain version of ``ssd_scan_cuda``).
 

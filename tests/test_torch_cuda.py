@@ -1046,12 +1046,17 @@ def test_flash_lse_does_not_change_the_output(dh, causal, Sq, Sk, dtype):
 
 @pytest.mark.gpu
 def test_flash_bwd_plan_mirrors_the_kernels_shared_memory():
+    """bwd_plan's shared memory of each kernel is the C side's, at every
+    width of both designs (the tensor-core design's from the padded
+    width: its 64-column panels, two stages and the 1,024 bytes that
+    align its swizzled tiles)."""
     _cuda()
     lib = kfa._bwd_lib()
     for dh in range(4, kfa.MAX_DH + 1, 4):
         for dtype in (torch.float32, torch.bfloat16):
             p = kfa.bwd_plan(dtype, dh, 128, 128)
             design = int(p.design == "tensor_core")
+            assert design == (dtype == torch.bfloat16 and dh % 16 == 0)
             assert lib.flash_attention_bwd_smem_bytes(design, 0, dh) == \
                 p.dkdv_smem_bytes, (dh, p)
             assert lib.flash_attention_bwd_smem_bytes(design, 1, dh) == \

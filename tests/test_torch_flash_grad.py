@@ -3,8 +3,12 @@
 computes) and its plain log-sum-exp against ``jax.vjp`` of the
 reference's custom VJP (``repro.models.flash_xla.flash_attention_xla``)
 and against torch autograd of the plain forward; ``ops.flash_attention``
-under autograd (on CPU tensors its backward is the plain version); and
-the gradient's launch plan.
+under autograd (on CPU tensors its backward is the plain version); the
+blocked emulation of the kernel's tensor-core design
+(``ref.flash_attention_bwd_blocked_ref``: its tiles and summation
+order) against the reference and, with its bf16 rounding points,
+against the float32 plain version at the card's tolerance; and the
+gradient's launch plan.
 
 Shapes: the reference's own (``tests/test_flash_xla.py``): causal MHA,
 GQA with Sk = 2,500 and no mask, causal MQA.  Tolerances: float32
@@ -139,11 +143,67 @@ def test_ops_flash_attention_gradient_is_the_plain_backward():
         assert ops.flash_attention(*leaves, causal=False).grad_fn is None
 
 
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_blocked_backward_matches_the_reference_vjp(name):
+    """The tensor-core design's tiling and summation order (64-key dK/dV
+    tiles walking the group's heads and 64-query tiles in order; 128-row
+    dQ tiles walking key tiles in order) in float32 is the reference's
+    gradient, at the float32 tolerance."""
+    (q, k, v, dout), (_, lse, dq, dk, dv) = _case(name, "float32")
+    causal = SHAPES[name][-1]
+    q, k, v, dout = (_torch(a, "float32") for a in (q, k, v, dout))
+    o, lse = ref.attention_ref(q, k, v, causal=causal, return_lse=True)
+    grads = ref.flash_attention_bwd_blocked_ref(q, k, v, o, lse, dout,
+                                                causal=causal)
+    for g, w, what in zip(grads, (dq, dk, dv), ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32
+        _close(g, w, "float32", what)
+
+
+WIDE = {  # B, H, Hkv, Sq, Sk, dh, causal: gemma-7b's head width, ragged
+    "wide_gqa_causal": (1, 4, 2, 200, 200, 256, True),
+    "wide_unequal": (1, 2, 1, 70, 130, 256, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES) + sorted(WIDE))
+def test_blocked_backward_with_bf16_rounding_is_within_the_card_tolerance(
+        name):
+    """On bf16 inputs the emulation rounds P and dS to bf16 where the
+    kernel does; its gradient stays within the card's FLASH_BWD_TOL (1e-2
+    of each output's largest magnitude) of the float32 plain version on
+    the same values, and of the plain version with the same rounding."""
+    B, H, Hkv, Sq, Sk, dh, causal = {**SHAPES, **WIDE}[name]
+    rng = np.random.default_rng(Sq * Sk + dh)
+    mk = lambda *s, sc=0.5: torch.from_numpy(
+        (rng.standard_normal(s) * sc).astype(np.float32)).bfloat16()
+    q, k, v = mk(B, H, Sq, dh), mk(B, Hkv, Sk, dh), mk(B, Hkv, Sk, dh)
+    dout = mk(B, H, Sq, dh, sc=1.0)
+    f32 = [t.float() for t in (q, k, v)]
+    o, lse = ref.attention_ref(*f32, causal=causal, return_lse=True)
+    exact = ref.flash_attention_bwd_ref(*f32, o, lse, dout.float(),
+                                        causal=causal)
+    got = ref.flash_attention_bwd_blocked_ref(q, k, v, o.bfloat16(), lse,
+                                              dout, causal=causal)
+    rounded = ref.flash_attention_bwd_ref(q, k, v, o.bfloat16(), lse, dout,
+                                          causal=causal)
+    for want in (exact, rounded):
+        scale = max(float(w.float().abs().max()) for w in want)
+        for g, w, what in zip(got, want, ("dq", "dk", "dv")):
+            assert g.dtype == torch.bfloat16 and g.shape == w.shape
+            np.testing.assert_allclose(
+                g.float().numpy(), w.float().numpy(), rtol=1e-2,
+                atol=1e-2 * scale, err_msg=what)
+
+
 def test_bwd_plan_sizes():
     """Every head width either design takes gets a plan within a block's
-    shared memory, bf16 with dh % 16 == 0 on tensor cores (two blocks an
-    SM for each kernel), float32 on CUDA cores; what neither takes is
-    refused."""
+    shared memory: bf16 with dh % 16 == 0 on tensor cores (one block an
+    SM at dh = 256: two stages of 64-row Q and dO tiles beside the
+    resident K and V; three of 32-row K and V tiles beside 128 rows of Q
+    and dO), float32 on CUDA cores; a zero stride (a broadcast TMA
+    cannot step) or an unaligned input takes CUDA cores; what neither
+    design takes is refused."""
     for dtype in (torch.float32, torch.bfloat16):
         for dh in range(4, kfa.MAX_DH + 1, 4):
             p = kfa.bwd_plan(dtype, dh, 1024, 1024,
@@ -152,12 +212,21 @@ def test_bwd_plan_sizes():
             assert p.design == ("tensor_core" if tc else "cuda_core"), dh
             for smem in (p.dkdv_smem_bytes, p.dq_smem_bytes):
                 assert 0 < smem <= SMEM, (dh, p)
-                if tc:
-                    assert 2 * (smem + 1024) <= 233_472, (dh, p)
+            if tc:
+                dmp = kfa.padded_width(dh)
+                assert dmp in (64, 128, 256) and dh <= dmp
+                assert dmp == 64 or dmp // 2 < dh, (dh, dmp)
+                assert (p.key_rows, p.query_tile, p.dq_rows, p.dkdv_stages,
+                        p.dq_stages) == (64, 64, 128, 2, 3), (dh, p)
+                assert p.dq_key_tile == (64 if dh <= 128 else 32), (dh, p)
     p = kfa.bwd_plan(torch.bfloat16, 256, 1024, 1024)
-    assert p == kfa.BwdPlan("tensor_core", 32, 64, 64, 32, 111_104,
-                            101_376)
+    assert p == kfa.BwdPlan("tensor_core", 64, 64, 128, 32, 2, 3, 206_912,
+                            230_464, 2 * 1024)
+    assert kfa.bwd_plan(torch.bfloat16, 64, 65, 65).workspace_rows == 256
+    assert kfa.bwd_plan(torch.float32, 64, 65, 65).workspace_rows == 65
     assert kfa.bwd_plan(torch.bfloat16, 256, 8, 8, strides=[256, 256, 255],
+                        ).design == "cuda_core"
+    assert kfa.bwd_plan(torch.bfloat16, 64, 8, 8, strides=[512, 0, 64],
                         ).design == "cuda_core"
     assert kfa.bwd_plan(torch.bfloat16, 64, 8, 8,
                         aligned=False).design == "cuda_core"
@@ -165,7 +234,9 @@ def test_bwd_plan_sizes():
         with pytest.raises(ValueError, match="head width"):
             kfa.bwd_plan(torch.bfloat16, dh, 8, 8)
     with pytest.raises(ValueError, match="too long"):
-        kfa.bwd_plan(torch.bfloat16, 64, 8, 32 * 65536)
+        kfa.bwd_plan(torch.bfloat16, 64, 8, 64 * 65536)
+    with pytest.raises(ValueError, match="too long"):
+        kfa.bwd_plan(torch.float32, 64, 8, 8 * 65536)
 
 
 def test_gemma_training_inputs_take_the_tensor_core_backward():
