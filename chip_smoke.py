@@ -115,7 +115,26 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                flash gradient is timed once more at gemma-7b's published
                context, (1, 16, 8,192, 256), causal, beside
                ``scaled_dot_product_attention``'s backward and its bound,
-               and held against its plain version head by head.
+               and held against its plain version head by head;
+  decode    -- last, with the allocator's cache emptied first: gemma-7b at
+               its published width and depth (28 blocks, bf16) and
+               mamba2-130m at its own (24 SSD blocks), weights from
+               --seed, ``models.init_cache`` / ``prefill`` /
+               ``decode_step``: 8 prompts of 2,048 tokens (mamba2: 1,024)
+               prefilled into a cache of 2,080 positions (1,056), then 32
+               teacher-forced decode steps; prefill ms, decode ms a step
+               (the median), tokens/s, cache bytes, peak memory, the
+               launches of every kernel (gemma's prefill runs the flash
+               kernel once a block, decode none; mamba2's recurrence in
+               plain PyTorch) and a traced step; every cache row not
+               written yet must stay zero.  The decoded logits against
+               the forward's at the decoded positions (28 blocks in bf16:
+               reported), in float32 within 2e-3 (gemma cut to 2 blocks,
+               mamba2 at full depth) and in bf16 at 2 blocks within twice
+               the bf16 forward's own distance to the float32 forward.
+               The flash kernel is held against its plain version and
+               timed beside ``scaled_dot_product_attention`` at the
+               prefill's inputs (the record's ``prefill_*`` keys).
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers (forward and gradient) also count
@@ -180,6 +199,12 @@ RETRIEVAL_ARCHS = {
 RETRIEVAL_LSH = dict(r=0.2, c=2.0, k=8, W=0.5, L=16, n_tables=1,
                      k_neighbors=1)
 BF16_TOL = 0.05    # the reference's bf16 attention tolerance
+# the flash forward against its plain version, besides BF16_TOL: each
+# output row within this fraction of the row's own largest |o| (a bf16
+# step is at most 2**-7 of a value; o shrinks as a row's keys grow, to a
+# typical |o| near BF16_TOL at 2,048 keys, where BF16_TOL alone would
+# pass a dropped key tile)
+FLASH_ROW_TOL = 1e-2
 HASH_SAMPLE = 65536  # rows of each hash call checked against the CPU
 # the simulate path: the paper's Random scale (d = 100, 1M points, 100K
 # queries; the reference's benches cut it to 20,000 / 2,000), 64 shards
@@ -229,6 +254,13 @@ FLASH_BWD_TOL = 1e-2
 # the flash gradient once more at gemma-7b's published context
 # (arXiv:2403.08295: 8,192 tokens), one sequence of 16 heads of 256, causal
 LONG_BATCH, LONG_SEQ = 1, 8192
+# the decode path: arch -> (batch, prompt tokens, teacher-forced decode
+# steps), at the published widths and depths in bf16; the checks against
+# the forward on DECODE_CHECK = (batch, prompt, steps), in float32 within
+# the reference's own decode tolerance (tests/test_arch_smoke.py:85) and
+# in bf16 at DECODE_CUT blocks against rounding's own reach
+DECODE_RUNS = {"gemma-7b": (8, 2048, 32), "mamba2-130m": (8, 1024, 32)}
+DECODE_CHECK, DECODE_CUT, DECODE_F32_TOL = (2, 256, 8), 2, 2e-3
 
 
 def check(cond, msg):
@@ -388,6 +420,13 @@ def profile_forward(model, tokens, kernel_key):
     from repro_torch.serving import embed_texts
     rows, _, _ = traced(lambda: embed_texts(model, tokens),
                         f"one {len(tokens)}-document forward")
+    print("forward device ms by part: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in device_parts(rows, kernel_key).items()))
+
+
+def device_parts(rows, kernel_key):
+    """Device ms of traced kernel rows by part: the kernel whose name
+    holds ``kernel_key``, the matrix products, the rest."""
     part = {kernel_key: 0.0, "gemm": 0.0, "other": 0.0}
     for e in rows:
         key = e.key.lower()
@@ -395,8 +434,7 @@ def profile_forward(model, tokens, kernel_key):
                 "gemm" if any(w in key for w in ("gemm", "xmma", "cutlass",
                                                  "nvjet")) else "other")
         part[name] += e.self_device_time_total / 1e3
-    print("forward device ms by part: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in part.items()))
+    return part
 
 
 def recorder(captured, name, fn):
@@ -609,19 +647,31 @@ def _same(a, b):
 
 
 def _launch_counts():
+    """Every kernel wrapper's launch count, by kernel."""
     from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import lsh_hash as klh
+    from repro_torch.kernels import ssd_scan as kssd
     return {"bucket_search": kbs.bucket_search_cuda.launches,
             "bucket_gather": kbs.bucket_gather_cuda.launches,
-            "lsh_hash": klh.lsh_hash_cuda.launches}
+            "lsh_hash": klh.lsh_hash_cuda.launches,
+            "flash_attention": kfa.flash_attention_cuda.launches,
+            "flash_attention_bwd": kfa.flash_attention_bwd_cuda.launches,
+            "ssd_scan": kssd.ssd_scan_cuda.launches,
+            "ssd_scan_bwd": kssd.ssd_scan_bwd_cuda.launches}
 
 
 def _reset_launches():
+    """Every kernel wrapper's launch counts, total and by design, to 0."""
     from repro_torch.kernels import bucket_search as kbs
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import lsh_hash as klh
+    from repro_torch.kernels import ssd_scan as kssd
     kbs.bucket_search_cuda.launches = 0
     kbs.bucket_gather_cuda.launches = 0
     klh.lsh_hash_cuda.launches = 0
+    kfa.reset_launches()
+    kssd.reset_launches()
 
 
 def syncs_of_one_submit(idx, rows, K):
@@ -1585,15 +1635,29 @@ def wide_scan_checks(svc, query_tokens):
     torch.cuda.synchronize()
 
 
-def flash_record(a, kw, launches, by_design, hmma):
-    """The flash kernel against its plain version and PyTorch's fused
-    attention at one layer's q, k, v of a 64-document batch."""
+def flash_rows(got, want, where):
+    """The flash output against its plain version's row by row: each
+    row's largest |error| over its largest |o|, checked within
+    FLASH_ROW_TOL.  Returns that and the median |o|."""
+    mag = want.float().abs()
+    err = (got.float() - want.float()).abs().amax(-1)
+    row_err = float((err / mag.amax(-1).clamp_min(1e-30)).max())
+    check(row_err <= FLASH_ROW_TOL,
+          f"flash_attention differs from its plain version by {row_err} of "
+          f"a row's largest |o| at {where} (tolerance {FLASH_ROW_TOL})")
+    return row_err, float(mag.median())
+
+
+def flash_measure(q, k, v, causal, where):
+    """The flash kernel at q, k, v: its design (which must be
+    "tensor_core"), ms beside its plain version's and
+    ``scaled_dot_product_attention``'s, its error against the plain
+    version (within BF16_TOL, and each row within FLASH_ROW_TOL of its
+    largest |o|) and its bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
-    q, k, v = a
-    causal = kw.get("causal", True)
     design = kfa.plan(q.dtype, q.shape[-1], q.shape[2], strides=[
         s for t in (q, k, v, q) for s in t.stride()[:3]],
         aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v))).design
@@ -1605,7 +1669,10 @@ def flash_record(a, kw, launches, by_design, hmma):
     err = float((got.float() - want.float()).abs().max())
     check(torch.allclose(got.float(), want.float(), rtol=BF16_TOL,
                          atol=BF16_TOL),
-          f"flash_attention differs from its plain version by {err}")
+          f"flash_attention differs from its plain version by {err} at "
+          f"{where}")
+    row_err, median = flash_rows(got, want, where)
+    del want
     library_ms, _ = timed(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal), REPS)
     B, H, S, dh = q.shape
@@ -1613,18 +1680,31 @@ def flash_record(a, kw, launches, by_design, hmma):
     pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[2])
     flops = 4.0 * pairs * dh            # q.k and p.v, 2 FLOPs a product
     bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
-    print(f"flash_attention ({design}): q {tuple(q.shape)} {q.dtype}, v "
-          f"strides {v.stride()}: {ms:.4f} ms "
+    print(f"flash_attention ({design}) at {where}: q {tuple(q.shape)} "
+          f"{q.dtype}, v strides {v.stride()}: {ms:.4f} ms "
           f"(plain {plain_ms:.3f} ms, scaled_dot_product_attention "
           f"{library_ms:.4f} ms, bound {bound:.4f} ms: {nbytes / 1e6:.1f} "
-          f"MB, {flops / 1e9:.2f} GFLOP), max |err| {err:.3g}")
+          f"MB, {flops / 1e9:.2f} GFLOP), max |err| {err:.3g}; by row, "
+          f"{row_err:.3g} of the row's largest |o| (tolerance "
+          f"{FLASH_ROW_TOL}); median |o| {median:.3g}")
+    return {"design": design, "max_abs_err": err,
+            "max_rel_err_by_row": row_err, "median_abs_out": median,
+            "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def flash_record(a, kw, launches, by_design, hmma):
+    """The flash kernel against its plain version and PyTorch's fused
+    attention at one layer's q, k, v of a 64-document batch."""
+    q, k, v = a
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:74",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": library_ms, "design": design,
+        "launches": launches,
+        **flash_measure(q, k, v, kw.get("causal", True),
+                        "the retrieval path's inputs"),
         "launches_by_design": by_design, "sass_hmma": hmma}
 
 
@@ -2261,7 +2341,7 @@ def train_dense_path(args, captured):
                     "cuda", "--seed", str(args.seed)]
             if fail:
                 argv += ["--fail-at", str(DENSE_FAIL_AT)]
-            kfa.reset_launches()
+            _reset_launches()
             held = torch.cuda.memory_allocated()   # by the earlier paths
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -2269,9 +2349,7 @@ def train_dense_path(args, captured):
                 stats = train.main(argv)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-        launches = {
-            "flash_attention": kfa.flash_attention_cuda.launches,
-            "flash_attention_bwd": kfa.flash_attention_bwd_cuda.launches}
+        launches = _launch_counts()
         by_design = {
             "flash_attention": dict(
                 kfa.flash_attention_cuda.launches_by_design),
@@ -2294,8 +2372,8 @@ def train_dense_path(args, captured):
               "and the rematerialised forward)")
         check(launches["flash_attention_bwd"] == cfg.n_layers * n,
               "each step launches the flash gradient kernel once a layer")
-        for k, v in launches.items():
-            check(by_design[k]["tensor_core"] == v,
+        for k, designs in by_design.items():
+            check(designs["tensor_core"] == launches[k],
                   f"every training launch of {k} must take the tensor-core "
                   f"design: {by_design[k]}")
         check(all(math.isfinite(v) for v in stats.losses),
@@ -2423,13 +2501,17 @@ def flash_train_forward(a):
                          atol=BF16_TOL),
           f"flash_attention differs from its plain version by {err} at the "
           f"train path's inputs")
+    row_err, median = flash_rows(o, want_o, "the train path's inputs")
     check(torch.allclose(lse, want_lse, rtol=1e-4, atol=1e-4),
           f"the flash forward's lse differs from the plain one by {lse_err}")
     print(f"flash_attention at the train path's inputs: q {tuple(q.shape)} "
           f"strides {q.stride()}: {ms:.4f} ms with the lse, output bitwise "
           f"the same without it, max |err| {err:.3g} (tolerance "
-          f"{BF16_TOL}), lse max |err| {lse_err:.3g} (1e-4)")
-    return {"train_max_abs_err": err, "train_lse_max_abs_err": lse_err,
+          f"{BF16_TOL}), by row {row_err:.3g} of the row's largest |o| "
+          f"(tolerance {FLASH_ROW_TOL}), median |o| {median:.3g}, lse max "
+          f"|err| {lse_err:.3g} (1e-4)")
+    return {"train_max_abs_err": err, "train_max_rel_err_by_row": row_err,
+            "train_median_abs_out": median, "train_lse_max_abs_err": lse_err,
             "train_ms": ms}
 
 
@@ -2570,6 +2652,217 @@ def flash_bwd_long(seed):
             "long_max_rel_err_by_output": errs, "long_peak_gib": peak}
 
 
+def _teacher_forced(model, tokens, S, T):
+    """Prefill tokens[:, :S] into a new cache of S + T positions, then
+    decode tokens[:, S + t] at position S + t for each t < T.  Returns
+    the logits (B, T + 1, vocab) of the prefill's last position and of
+    each step -- the forward's at positions S - 1 .. S + T - 1 -- the
+    cache, the prefill's ms and each step's (CUDA events).  Every cache
+    row at a position not written yet must still be zero after the
+    prefill and after each step."""
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    cache = init_cache(model.cfg, tokens.shape[0], S + T,
+                       device=tokens.device)
+    kv = [t for seg in cache for blk in seg.values()
+          for key, t in blk.items() if key in ("k", "v")]
+    stray = torch.zeros((), dtype=torch.int64, device=tokens.device)
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(T + 1)]
+    marks[0][0].record()
+    last, cache = prefill(model, tokens[:, :S], cache)
+    marks[0][1].record()
+    logits = [last]
+    for t in range(T + 1):
+        pos = S + t                       # rows >= pos not written yet
+        for leaf in kv:
+            stray += torch.count_nonzero(leaf[..., pos:, :])
+        if t == T:
+            break
+        marks[t + 1][0].record()
+        out, cache = decode_step(model, tokens[:, pos:pos + 1], cache, pos)
+        marks[t + 1][1].record()
+        logits.append(out)
+    torch.cuda.synchronize()
+    check(int(stray) == 0, f"{int(stray)} cache entries at positions not "
+          f"written yet are not zero")
+    ms = [a.elapsed_time(b) for a, b in marks]
+    return torch.cat(logits, dim=1), cache, ms[0], ms[1:]
+
+
+def _forward_rows(model, tokens, S, T):
+    """The full-sequence forward's logits at positions S - 1 .. S + T - 1
+    only: the blocks over all S + T tokens, then the final norm and the
+    head on those rows (gemma-7b's (8, 2,080, 256,000) float32 logits
+    would be 17 GB)."""
+    from repro_torch.models import hidden_states
+    from repro_torch.models.transformer import _logits
+    return _logits(model, hidden_states(model, tokens[:, :S + T])[
+        :, S - 1:S + T])
+
+
+def _decode_tokens(cfg, seed, B, n):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, n))).to("cuda")
+
+
+def decode_checks(cfg, seed):
+    """The decode path held to the full-sequence forward (DECODE_CHECK
+    tokens, B x (S + T)): in float32 on the card within DECODE_F32_TOL
+    (gemma-7b cut to DECODE_CUT blocks, mamba2-130m at its full depth),
+    and in bf16 at DECODE_CUT blocks within twice the bf16 forward's own
+    distance to the float32 forward on the same weights."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.train import cut_depth
+    from repro_torch.models import (Transformer, init_params,
+                                    load_param_tree, param_tree)
+    B, S, T = DECODE_CHECK
+    tokens = _decode_tokens(cfg, seed + 1, B, S + T)
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa
+    m16 = init_params(cut_depth(cfg, DECODE_CUT), generator=gen(),
+                      device="cuda")
+    m32 = Transformer(dataclasses.replace(m16.cfg, **f32), "cuda")
+    load_param_tree(m32, param_tree(m16))
+    dec16 = _teacher_forced(m16, tokens, S, T)[0]
+    fwd16 = _forward_rows(m16, tokens, S, T)
+    fwd32 = _forward_rows(m32, tokens, S, T)
+    gap = float((dec16 - fwd16).abs().max())
+    reach = float((fwd16 - fwd32).abs().max())
+    print(f"decode {cfg.name} bf16 at {DECODE_CUT} blocks, {B} x ({S} + "
+          f"{T}) tokens: max |decode - forward| {gap:.4g}, the bf16 "
+          f"forward's own max |bf16 - float32| {reach:.4g} (limit "
+          f"{2 * reach:.4g})")
+    check(bool(torch.isfinite(dec16).all()) and gap <= 2 * reach,
+          f"{cfg.name}: bf16 decode is {gap} from the bf16 forward, past "
+          f"twice rounding's reach {reach}")
+    del m16, dec16, fwd16, fwd32
+    if cfg.is_attention_free():      # mamba2: float32 at its full depth
+        m32 = init_params(dataclasses.replace(cfg, **f32), generator=gen(),
+                          device="cuda")
+    dec32 = _teacher_forced(m32, tokens, S, T)[0]
+    fwd32 = _forward_rows(m32, tokens, S, T)
+    err = float((dec32 - fwd32).abs().max())
+    print(f"decode {cfg.name} float32 at {m32.cfg.n_layers} blocks, {B} x "
+          f"({S} + {T}) tokens: max |decode - forward| {err:.3g} "
+          f"(rtol = atol = {DECODE_F32_TOL})")
+    check(torch.allclose(dec32, fwd32, rtol=DECODE_F32_TOL,
+                         atol=DECODE_F32_TOL),
+          f"{cfg.name}: float32 decode differs from the forward by {err}")
+    return {"bf16_cut_max_abs_err": gap, "bf16_cut_rounding_reach": reach,
+            "f32_max_abs_err": err}
+
+
+def decode_path(args, captured):
+    """gemma-7b and mamba2-130m at their published widths and depths
+    (bf16, weights from --seed): a prompt of S tokens prefilled into a
+    cache, then T teacher-forced decode steps, then the forward at the
+    decoded positions (reported), and ``decode_checks``.  Returns the
+    path's numbers by arch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_params
+    out = {}
+    for arch, (B, S, T) in DECODE_RUNS.items():
+        cfg = get_config(arch)
+        width = RETRIEVAL_ARCHS[arch][0]
+        check((cfg.n_layers, cfg.d_model, cfg.cdtype) == (*width,
+                                                          torch.bfloat16),
+              f"{arch} must decode at its published width and depth")
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(args.seed), device="cuda")
+        tokens = _decode_tokens(cfg, args.seed, B, S + T)
+        _teacher_forced(model, tokens, S, 1)                # warm
+        # ---- the path: counts to 0, drive, read ------------------------
+        ops.flash_attention_cuda = recorder(
+            captured, "flash_attention_prefill", kfa.flash_attention_cuda)
+        _reset_launches()
+        dec, cache, prefill_ms, step_ms = _teacher_forced(model, tokens, S,
+                                                          T)
+        launches = _launch_counts()
+        by_design = dict(kfa.flash_attention_cuda.launches_by_design)
+        ops.flash_attention_cuda = kfa.flash_attention_cuda
+        step = float(sorted(step_ms)[T // 2])
+        cache_bytes = sum(t.nbytes for seg in cache for blk in seg.values()
+                          for t in blk.values())
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        want = dict.fromkeys(launches, 0)
+        if not cfg.is_attention_free():
+            want["flash_attention"] = cfg.n_layers
+        check(launches == want, f"{arch}: decode path launches {launches}, "
+              f"expected {want} (the flash kernel once a dense block in "
+              f"the prefill, nothing in decode)")
+        check(by_design["tensor_core"] == want["flash_attention"],
+              f"every prefill launch must take the tensor-core design: "
+              f"{by_design}")
+        print(f"phase decode {arch}: {cfg.n_layers} blocks, B = {B}, prompt "
+              f"{S}, {T} steps, Smax {S + T}: prefill {prefill_ms:.2f} ms, "
+              f"decode {step:.3f} ms a step (median; min {min(step_ms):.3f}"
+              f", max {max(step_ms):.3f}), {B / step * 1e3:.1f} tokens/s; "
+              f"cache {cache_bytes} bytes; peak device memory {peak:.2f} "
+              f"GiB above the {held / 2**30:.2f} GiB held before; launches "
+              f"{launches}")
+        last = S + T - 1              # decoded again: the same row written
+        rows, wall, n = traced(lambda: decode_step(
+            model, tokens[:, last:last + 1], cache, last),
+            f"one {arch} decode step")
+        parts = device_parts(rows, "flash_attention")
+        print(f"decode {arch} step device ms by part: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()))
+        del cache
+        fwd = _forward_rows(model, tokens, S, T)
+        check(bool(torch.isfinite(dec).all()) and bool(
+              torch.isfinite(fwd).all()), f"{arch}: non-finite logits")
+        err = float((dec - fwd).abs().max())
+        top1 = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+        print(f"decode {arch} bf16 at {cfg.n_layers} blocks against the "
+              f"forward at the {T + 1} decoded positions (reported, not "
+              f"checked): max |logit difference| {err:.4g}, top-1 agreement "
+              f"{top1:.4f}; {time.perf_counter() - t0:.1f} s")
+        del model, dec, fwd
+        torch.cuda.empty_cache()
+        checks = decode_checks(cfg, args.seed)
+        secs = time.perf_counter() - t0
+        path_peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"phase decode {arch}: {secs:.1f} s with the checks, peak "
+              f"device memory {path_peak:.2f} GiB (all held)")
+        out[arch] = {"batch": B, "prompt": S, "steps": T, "seconds": secs,
+                     "path_peak_gib": path_peak,
+                     "prefill_ms": prefill_ms, "decode_step_ms": step,
+                     "decode_step_ms_each": step_ms,
+                     "tokens_per_s": B / step * 1e3,
+                     "cache_bytes": cache_bytes, "peak_gib": peak,
+                     "launches": launches, "bf16_max_abs_err": err,
+                     "bf16_top1_agreement": top1,
+                     "traced_step_wall_ms": wall,
+                     "traced_step_launches": n,
+                     "traced_step_device_ms": parts, **checks}
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_prefill(a, launches):
+    """The flash kernel at the decode path's prefill inputs (one layer's
+    q, k, v of gemma-7b's prompt): the ``prefill_*`` keys of the
+    ``flash_attention`` record."""
+    (q, k, v), kw = a
+    got = flash_measure(q, k, v, kw.get("causal", True),
+                        "the decode path's prefill inputs")
+    got.pop("design")
+    return {"prefill_launches": launches, "prefill_shape": list(q.shape),
+            **{f"prefill_{key}": val for key, val in got.items()}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2700,6 +2993,12 @@ def main() -> int:
     del fa_args
     torch.cuda.empty_cache()
     records["flash_attention_bwd"].update(flash_bwd_long(args.seed))
+    torch.cuda.empty_cache()
+    decode = decode_path(args, captured)
+    records["flash_attention"].update(flash_prefill(
+        captured.pop("flash_attention_prefill"),
+        decode["gemma-7b"]["launches"]["flash_attention"]))
+    print("decode: " + json.dumps(decode))
     print(f"total {time.perf_counter() - t_start:.0f} s")
     records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
                                           own_launches)

@@ -12,7 +12,8 @@ the port draws its own with a ``torch.Generator``, which does not give
 jax.random's numbers.  Training state goes both ways: the reference's
 ``OptState`` into the port (``opt_state_from_arrays``), and the port's
 parameters or gradients back to the reference's tree as numpy
-(``model_arrays``), so that tests compare leaf by leaf.
+(``model_arrays``), so that tests compare leaf by leaf.  A serving
+cache crosses both ways too (``cache_from_arrays``, ``cache_arrays``).
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ import torch
 from repro_torch.core.hashing import StackedHashParams
 from repro_torch.core.index import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (Transformer, load_param_tree,
-                                            param_tree)
+from repro_torch.models.transformer import (Transformer, init_cache,
+                                            load_param_tree, param_tree)
 from repro_torch.optim import OptState
 from repro_torch.tree import tree_map
 
@@ -85,6 +86,34 @@ def model_arrays(model: Transformer, values: dict | None = None) -> dict:
     arrays (``param_tree``'s layout: segments stacked over repeats)."""
     return tree_map(lambda t: t.float().cpu().numpy(),
                     param_tree(model, values))
+
+
+def cache_from_arrays(tree: list, cfg: ModelConfig, device=None) -> list:
+    """The reference's ``init_cache`` pytree, as numpy arrays (filled or
+    not), -> the port's cache on ``device`` (``cuda`` unless given): the
+    same layout (``models.init_cache``), every leaf rounded to its
+    dtype.  Batch and Smax are read from the arrays."""
+    blocks = [b for seg in tree for b in seg.values()]
+    batch = next(iter(blocks[0].values())).shape[1]
+    smax = next((b["k"].shape[3] for b in blocks if "k" in b), 0)
+    cache = init_cache(cfg, batch, smax, device)
+    for seg, src in zip(cache, _tensors(tree), strict=True):
+        for name, leaves in seg.items():
+            for key, t in leaves.items():
+                a = src[name][key]
+                if tuple(a.shape) != tuple(t.shape):
+                    raise ValueError(f"{name}/{key}: shape {tuple(a.shape)}"
+                                     f" != {tuple(t.shape)}")
+                t.copy_(a)
+    return cache
+
+
+def cache_arrays(cache: list) -> list:
+    """The port's cache -> the reference's pytree of float32 numpy arrays
+    (the inverse of ``cache_from_arrays``), copies that later steps do
+    not write."""
+    return tree_map(lambda t: t.to("cpu", torch.float32, copy=True).numpy(),
+                    cache)
 
 
 def opt_state_from_arrays(state, device=None) -> OptState:

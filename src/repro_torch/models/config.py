@@ -125,6 +125,12 @@ class ModelConfig:
         return all(k in (BlockKind.SSM,)
                    for s in self.segments for k in s.kinds)
 
+    def is_subquadratic(self) -> bool:
+        """True if decode cost per token is O(1)-ish in context length
+        (SSM / RG-LRU / local-window only)."""
+        return all(k in (BlockKind.SSM, BlockKind.RGLRU, BlockKind.LOCAL_ATTN)
+                   for s in self.segments for k in s.kinds)
+
 
 def dense_stack(n_layers: int, kind: BlockKind = BlockKind.ATTN,
                 moe: bool = False) -> tuple:

@@ -131,7 +131,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy over all positions, in the reference's
     arithmetic (float32): the row max shifted out without a gradient, and
     the label logit taken by a masked sum over the vocab axis rather than
-    a gather.  Padded vocab columns come in masked at -1e30 (``_lm_head``)
+    a gather.  Padded vocab columns come in masked at -1e30 (``_logits``)
     and so add nothing."""
     lf = logits.float()
     m = torch.amax(lf, dim=-1, keepdim=True).detach()

@@ -9,9 +9,15 @@ config has one.  ``forward`` runs the full sequence with no cache.
 
 The port runs ATTN and SSM blocks.  A config with other block kinds,
 MoE, an encoder or a modality frontend raises ``NotImplementedError``
-(the config registry names the ROADMAP item of each arch); ``prefill``
-and ``decode_step`` wait for the decode and cache path (ROADMAP Queue 1
-item 11.3).
+naming the ROADMAP item that ports it.
+
+Serving: ``init_cache`` lays out the reference's cache pytree -- a list
+with one entry a segment, ``{"b<j>": block j's leaves}``, each leaf
+stacked over the segment's repeats on axis 0 -- and ``prefill`` and
+``decode_step`` fill it in place: each layer writes its own slice of
+the stacked leaves (an ATTN block's K/V at the positions it runs, an
+SSM block's conv and SSM state), so the tree passes from call to call
+unchanged and carries across to and from the reference (``convert.py``).
 
 Training: ``loss_fn`` is the reference's, through a differentiable
 forward with the reference's per-block rematerialisation (its
@@ -36,18 +42,29 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.config import BlockKind, ModelConfig
 from repro_torch.models.layers import (MLP, RMSNorm, cross_entropy, embed,
                                        he_init_, param, unembed)
-from repro_torch.models.ssm import SSM
+from repro_torch.models.ssm import SSM, init_ssm_state, ssm_block
+
+
+# what is not ported yet -> the ROADMAP Queue 1 item that ports it
+_ITEMS = {"moe": "11.4a (MoE)",
+          BlockKind.RGLRU: "11.4b (RG-LRU and local attention)",
+          BlockKind.LOCAL_ATTN: "11.4b (RG-LRU and local attention)",
+          BlockKind.MLA: "11.4c (MLA)",
+          "frontend": "11.5 (the encoder and modality frontends)"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every part of ``cfg`` is ported."""
-    ported = all(k in _BLOCKS and not seg.moe
-                 for seg in cfg.segments for k in seg.kinds)
-    if not ported or cfg.encoder_layers or cfg.frontend != "none":
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
+    part of ``cfg`` that is not ported."""
+    missing = [k for seg in cfg.segments for k in
+               (("moe",) if seg.moe else ()) + seg.kinds if k not in _BLOCKS]
+    if cfg.encoder_layers or cfg.frontend != "none":
+        missing.append("frontend")
+    if missing:
         raise NotImplementedError(
             f"{cfg.name}: only ATTN and SSM blocks without MoE, encoder "
             f"or frontend are ported to repro_torch yet (ROADMAP Queue 1 "
-            f"item 11)")
+            f"item {_ITEMS[missing[0]]})")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -68,8 +85,8 @@ class Block(nn.Module):
         self.norm_mlp = RMSNorm(d, eps, dt, device)
         self.mlp = MLP(d, cfg.d_ff, cfg.act, dt, device)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm_mix(x))
+    def forward(self, x, *, pos0=0, cache=None):
+        x = x + self.attn(self.norm_mix(x), pos0=pos0, cache=cache)
         return x + self.mlp(self.norm_mlp(x))
 
 
@@ -81,8 +98,17 @@ class SSMBlock(nn.Module):
         self.norm_mix = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.pdtype, device)
         self.ssm = SSM(cfg, device)
 
-    def forward(self, x):
-        return x + self.ssm(self.norm_mix(x))
+    def forward(self, x, *, pos0=0, cache=None):
+        """``cache``: the block's {"conv", "ssm"} state, continued from and
+        overwritten in place (``pos0`` is not needed: the state is the
+        position)."""
+        h = self.norm_mix(x)
+        if cache is None:
+            return x + self.ssm(h)
+        o, new = ssm_block(self.ssm, self.ssm.cfg, h, state=cache)
+        for key, t in new.items():
+            cache[key].copy_(t)
+        return x + o
 
 
 _BLOCKS = {BlockKind.ATTN: Block, BlockKind.SSM: SSMBlock}
@@ -137,12 +163,21 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     return model
 
 
-def _blocks(model: Transformer, tokens: torch.Tensor, remat: bool):
+def _blocks(model: Transformer, tokens: torch.Tensor, remat: bool = False,
+            pos0=0, cache: list | None = None):
+    """Tokens (B, S) at positions pos0 .. pos0 + S - 1 through every
+    block.  With ``cache`` (``init_cache``'s tree) each layer reads and
+    writes its own slice of it in place; with ``remat`` each block is
+    rematerialised in the backward pass."""
     x = embed(model.embed_table, tokens).to(model.cfg.cdtype)
-    for blocks in model.segments:
-        for block in blocks:
-            x = (checkpoint(block, x, use_reentrant=False) if remat
-                 else block(x))
+    for i, blocks in enumerate(model.segments):
+        unit = len(model.cfg.segments[i].kinds)
+        for layer, block in enumerate(blocks):
+            kw = {} if cache is None else {"pos0": pos0, "cache": {
+                key: t[layer // unit]
+                for key, t in cache[i][f"b{layer % unit}"].items()}}
+            x = (checkpoint(block, x, use_reentrant=False, **kw) if remat
+                 else block(x, **kw))
     return x
 
 
@@ -150,13 +185,15 @@ def _blocks(model: Transformer, tokens: torch.Tensor, remat: bool):
 def hidden_states(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings (B, S) -> the last block's output (B, S, d), in
     the compute dtype, before the final norm."""
-    return _blocks(model, tokens, remat=False)
+    return _blocks(model, tokens)
 
 
-def _lm_head(model: Transformer, x):
+def _logits(model: Transformer, x):
+    """The last block's output (B, S, d) -> logits (B, S, vocab_padded)
+    f32: the final norm, then the head."""
     cfg = model.cfg
     head = model.embed_table.T if cfg.tie_embeddings else model.lm_head
-    logits = unembed(head, x, cfg.logit_softcap)
+    logits = unembed(head, model.final_norm(x), cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab:   # mask padded vocab rows
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
@@ -168,8 +205,58 @@ def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward -> logits (B, S, vocab_padded) f32.  (The
     reference also returns the MoE balance loss, which the ported
     families do not have.)"""
-    x = model.final_norm(hidden_states(model, tokens))
-    return _lm_head(model, x)
+    return _logits(model, hidden_states(model, tokens))
+
+
+# ---------------------------------------------------------------------------
+# Serving: the cache, prefill and decode
+# ---------------------------------------------------------------------------
+
+def _block_cache(kind: BlockKind, cfg: ModelConfig, batch: int,
+                 smax: int) -> dict:
+    """One block's cache leaves on the meta device (shapes and dtypes
+    only): an ATTN block's K/V (B, Hkv, Smax, hd) in the compute dtype,
+    an SSM block's state (``init_ssm_state``)."""
+    if kind == BlockKind.SSM:
+        return init_ssm_state(cfg, batch, "meta")
+    shape = (batch, cfg.n_kv_heads, smax, cfg.hd)
+    return {"k": torch.empty(shape, dtype=cfg.cdtype, device="meta"),
+            "v": torch.empty(shape, dtype=cfg.cdtype, device="meta")}
+
+
+def init_cache(cfg: ModelConfig, batch: int, smax: int,
+               device=None) -> list:
+    """A zero cache for ``batch`` sequences of up to ``smax`` positions on
+    ``device`` (``cuda`` unless given), in the reference's layout: one
+    ``{"b<j>": {leaf: tensor}}`` a segment, each leaf stacked over the
+    segment's repeats on axis 0 (copy r of block j is the segment's layer
+    r * len(kinds) + j).  Raises ``NotImplementedError`` naming the
+    ROADMAP item for a config the port does not run."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    return [{f"b{j}": {key: torch.zeros((seg.repeat, *t.shape),
+                                        dtype=t.dtype, device=device)
+                       for key, t in _block_cache(kind, cfg, batch,
+                                                  smax).items()}
+             for j, kind in enumerate(seg.kinds)}
+            for seg in cfg.segments]
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens: torch.Tensor, cache: list):
+    """Run the prompt tokens (B, S) at positions 0 .. S-1, filling
+    ``cache`` in place.  Returns (the last position's logits (B, 1,
+    vocab_padded) f32, cache)."""
+    x = _blocks(model, tokens, pos0=0, cache=cache)
+    return _logits(model, x[:, -1:]), cache
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, token: torch.Tensor, cache: list, pos):
+    """One-token decode: token (B, 1) at position ``pos`` (an int or a
+    0-d integer tensor, read on the device only) -> (logits (B, 1,
+    vocab_padded) f32, cache), the cache updated in place."""
+    return _logits(model, _blocks(model, token, pos0=pos, cache=cache)), cache
 
 
 def loss_fn(model: Transformer, tokens: torch.Tensor,
@@ -180,8 +267,8 @@ def loss_fn(model: Transformer, tokens: torch.Tensor,
     checkpointed units.  Refuses a config that does not train on the port
     (``check_trainable``)."""
     check_trainable(model.cfg)
-    x = model.final_norm(_blocks(model, tokens, remat=True))
-    return cross_entropy(_lm_head(model, x), labels)
+    return cross_entropy(_logits(model, _blocks(model, tokens, remat=True)),
+                         labels)
 
 
 def value_and_grad(model: Transformer, tokens: torch.Tensor,

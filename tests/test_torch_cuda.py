@@ -1615,3 +1615,102 @@ def test_simulator_hashes_launch_the_kernel():
     assert launched > 0 and "cuda" not in plain_calls
     np.testing.assert_array_equal(
         keep, dedup_embeddings(torch.cat(cpu[:2]), r=0.3, device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# the decode and cache path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-7b", "mistral-nemo-12b",
+                                  "mamba2-130m"])
+def test_reduced_decode_on_the_card_equals_the_cpu(arch):
+    """Reduced configs (float32): a prompt of 31 tokens prefilled into a
+    cache of 36 positions and four decode steps on the card (a dense
+    prompt through the flash kernel) against the CPU: every step's logits
+    and every cache leaf within rtol = atol = 1e-4, the CPU tests' model
+    tolerance; the position an int and a 0-d tensor on the device."""
+    dev = _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import (Transformer, decode_step, init_cache,
+                                    init_params, load_param_tree,
+                                    param_tree, prefill)
+    from repro_torch.tree import leaves_with_paths
+    cfg = get_config(arch, reduced=True)
+    cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    card = Transformer(cfg, dev)
+    load_param_tree(card, param_tree(cpu))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 35)))
+    runs = []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        toks = tokens.to(d)
+        cache = init_cache(cfg, 2, 36, device=d)
+        logits, cache = prefill(model, toks[:, :31], cache)
+        out = [logits]
+        for pos in range(31, 35):
+            p = pos if pos % 2 else torch.tensor(pos, device=d)
+            logits, cache = decode_step(model, toks[:, pos:pos + 1], cache,
+                                        p)
+            out.append(logits)
+        runs.append((torch.cat(out, 1).cpu(), leaves_with_paths(cache)))
+    (lc, (paths, cc)), (lg, (_, cg)) = runs
+    np.testing.assert_allclose(lg.numpy(), lc.numpy(), rtol=1e-4, atol=1e-4)
+    for path, c, g in zip(paths, cc, cg):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=str(path))
+
+
+@pytest.mark.gpu
+def test_bf16_decode_scores_make_no_float32_copy_of_the_cache():
+    """One bf16 decode step's attention at gemma-7b's layer shape (B = 8,
+    16 kv heads of 256, Smax 2,080) allocates less than a float32 copy of
+    the cache's K alone (half of one layer's K/V in float32): the
+    products read K and V in bf16 and sum in float32."""
+    dev = _cuda()
+    from repro_torch.models import attention as attn
+    B, H, S, dh = 8, 16, 2080, 256
+    g = torch.Generator(device=dev).manual_seed(0)
+    kc, vc = (torch.randn((B, H, S, dh), generator=g, device=dev)
+              .bfloat16() for _ in range(2))
+    q, kn, vn = (torch.randn((B, H, 1, dh), generator=g, device=dev)
+                 .bfloat16() for _ in range(3))
+    want = attn._decode_attn_delta(q, kc, vc, kn, vn, 2048, None)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = attn._decode_attn_delta(q, kc, vc, kn, vn, 2048, None)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra < B * H * S * dh * 4, extra
+    assert torch.equal(got, want)
+    plain = attn._decode_attn_delta(q.cpu(), kc.cpu(), vc.cpu(), kn.cpu(),
+                                    vn.cpu(), 2048, None)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               plain.float().numpy(), rtol=0.05, atol=0.05)
+
+
+@pytest.mark.gpu
+def test_prefill_launches_the_flash_kernel_once_a_dense_block():
+    """A prompt at position 0 runs the flash kernel once a block (on its
+    own q, k, v); a decode step and a prompt at a later position run
+    none."""
+    dev = _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill)
+    cfg = get_config("gemma-7b", reduced=True)
+    model = init_params(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device=dev)
+    cache = init_cache(cfg, 2, 48, device=dev)
+    before = kfa.flash_attention_cuda.launches
+    prefill(model, tokens[:, :32], cache)
+    assert kfa.flash_attention_cuda.launches - before == cfg.n_layers
+    before = kfa.flash_attention_cuda.launches
+    decode_step(model, tokens[:, 32:33], cache, 32)
+    from repro_torch.models.transformer import _blocks
+    _blocks(model, tokens[:, 33:40], pos0=33, cache=cache)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_cuda.launches == before

@@ -1,0 +1,332 @@
+"""The port's decode and cache path against the JAX reference.
+
+The same numpy inputs, made from a seed, go through ``repro.models``
+(``init_cache``, ``prefill``, ``decode_step``; jitted, on the CPU) and
+their counterparts in ``repro_torch.models`` on the CPU, where a prompt
+at position 0 runs the flash kernel's plain version.  Weights carry
+across through ``convert.model_params_from_arrays`` and caches through
+``convert.cache_from_arrays`` / ``cache_arrays``.  The inputs are the
+reference's own ``test_prefill_then_decode_matches_forward``
+(``tests/test_arch_smoke.py``): B = 2, a prompt of 31 tokens, Smax = 36,
+then four decode steps.  Tolerances:
+  * the port against the reference, float32: rtol = atol = 1e-4 (the
+    model tolerance of ``test_torch_models.py``): the prefill's last
+    logits, every cache leaf after the prefill and after each step, each
+    step's logits;
+  * decode against the port's own full-sequence forward: rtol = atol =
+    2e-3, the reference's own decode tolerance;
+  * the score paths against the reference's: 2e-5 in float32 (its kernel
+    tolerance, ``tests/test_kernels.py``), 0.05 in bf16.
+"""
+import dataclasses
+import enum
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.configs import list_archs  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import init_params as jinit_params  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import (decode_step, forward, init_cache,  # noqa: E402
+                                prefill)
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import config as pconfig  # noqa: E402
+from test_torch_cuda import one_torch_thread  # noqa: E402,F401
+
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+            torch.bfloat16: dict(rtol=0.05, atol=0.05)}
+# GeGLU, tied head, softcap; SwiGLU, GQA, untied head; the SSM family
+ARCHS = ["gemma-7b", "mistral-nemo-12b", "mamba2-130m"]
+B, PROMPT, STEPS, SMAX = 2, 31, 4, 36
+
+
+def _np(seed, *shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), **tol,
+                               err_msg=what)
+
+
+def _same_tree(got, want, tol, what):
+    """Every leaf of two cache trees (lists of {"b<j>": {leaf}})."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert sorted(g) == sorted(w)
+        for name in g:
+            assert sorted(g[name]) == sorted(w[name])
+            for key in g[name]:
+                _close(g[name][key], w[name][key], tol,
+                       f"{what}: segment {i} {name}/{key}")
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """{arch: (port model, tokens, the reference's prefill logits and
+    cache, its step logits and caches, its jitted decode step)}."""
+    out = {}
+    for i, arch in enumerate(ARCHS):
+        jcfg = jget_config(arch, reduced=True)
+        jp = jax.jit(jinit_params, static_argnums=1)(jax.random.PRNGKey(i),
+                                                     jcfg)
+        model = convert.model_params_from_arrays(
+            jax.tree.map(np.asarray, jp), get_config(arch, reduced=True),
+            device="cpu")
+        tokens = np.random.default_rng(10 + i).integers(
+            0, jcfg.vocab, (B, PROMPT + STEPS)).astype(np.int32)
+        jprefill = jax.jit(lambda p, t, c, cfg=jcfg: jtf.prefill(p, cfg, t,
+                                                                   c))
+        jdecode = jax.jit(lambda p, t, c, pos, cfg=jcfg: jtf.decode_step(
+            p, cfg, t, c, pos))
+        last, cache = jprefill(jp, jnp.asarray(tokens[:, :PROMPT]),
+                               jtf.init_cache(jcfg, B, SMAX))
+        ref = {"prefill": (np.asarray(last), jax.tree.map(np.asarray,
+                                                          cache))}
+        steps = []
+        for t in range(STEPS):
+            pos = PROMPT + t
+            logits, cache = jdecode(jp, jnp.asarray(tokens[:, pos:pos + 1]),
+                                    cache, jnp.int32(pos))
+            steps.append((np.asarray(logits), jax.tree.map(np.asarray,
+                                                           cache)))
+        ref["steps"] = steps
+        out[arch] = (model, tokens, ref,
+                     lambda c, t, pos, jp=jp, f=jdecode: f(
+                         jp, jnp.asarray(t), c, jnp.int32(pos)))
+    return out
+
+
+def _port_prefill(model, tokens):
+    cache = init_cache(model.cfg, B, SMAX, device="cpu")
+    last, cache = prefill(model, torch.from_numpy(tokens[:, :PROMPT]).long(),
+                          cache)
+    return last, cache
+
+
+def _token(tokens, pos):
+    return torch.from_numpy(tokens[:, pos:pos + 1]).long()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_matches_reference(runs, arch):
+    model, tokens, ref, _ = runs[arch]
+    last, cache = _port_prefill(model, tokens)
+    want_last, want_cache = ref["prefill"]
+    assert last.shape == (B, 1, model.cfg.vocab_padded)
+    _close(last.numpy(), want_last, MODEL_TOL, "prefill logits")
+    _same_tree(convert.cache_arrays(cache), want_cache, MODEL_TOL,
+               "cache after prefill")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_steps_match_reference(runs, arch):
+    """Each step's logits and the whole cache after it; the position is
+    an int on even steps and a 0-d int32 tensor on odd ones."""
+    model, tokens, ref, _ = runs[arch]
+    _, cache = _port_prefill(model, tokens)
+    for t, (want_logits, want_cache) in enumerate(ref["steps"]):
+        pos = PROMPT + t
+        logits, cache = decode_step(
+            model, _token(tokens, pos), cache,
+            pos if t % 2 == 0 else torch.tensor(pos, dtype=torch.int32))
+        _close(logits.numpy(), want_logits, MODEL_TOL, f"step {t} logits")
+        _same_tree(convert.cache_arrays(cache), want_cache, MODEL_TOL,
+                   f"cache after step {t}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_the_ports_forward(runs, arch):
+    """The prefill's last logits and every decode step's are the
+    full-sequence forward's at the same positions (the caches are exact,
+    not approximations)."""
+    model, tokens, _, _ = runs[arch]
+    full = forward(model, torch.from_numpy(tokens).long()).numpy()
+    last, cache = _port_prefill(model, tokens)
+    _close(last[:, 0].numpy(), full[:, PROMPT - 1], DECODE_TOL, "prefill")
+    for t in range(STEPS):
+        pos = PROMPT + t
+        logits, cache = decode_step(model, _token(tokens, pos), cache, pos)
+        _close(logits[:, 0].numpy(), full[:, pos], DECODE_TOL, f"step {t}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reference_cache_decodes_on_the_port(runs, arch):
+    """The reference's cache after its prefill, carried into the port,
+    decodes to the reference's own step logits."""
+    model, tokens, ref, _ = runs[arch]
+    cache = convert.cache_from_arrays(ref["prefill"][1], model.cfg,
+                                      device="cpu")
+    for t, (want_logits, _) in enumerate(ref["steps"]):
+        pos = PROMPT + t
+        logits, cache = decode_step(model, _token(tokens, pos), cache, pos)
+        _close(logits.numpy(), want_logits, MODEL_TOL, f"step {t}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_port_cache_decodes_on_the_reference(runs, arch):
+    """The port's cache after its prefill, carried into the reference,
+    decodes there to the port's own step logits."""
+    model, tokens, _, jdecode = runs[arch]
+    _, cache = _port_prefill(model, tokens)
+    jcache = jax.tree.map(jnp.asarray, convert.cache_arrays(cache))
+    for t in range(STEPS):
+        pos = PROMPT + t
+        logits, cache = decode_step(model, _token(tokens, pos), cache, pos)
+        jlogits, jcache = jdecode(jcache, tokens[:, pos:pos + 1], pos)
+        _close(jlogits, logits.numpy(), MODEL_TOL, f"step {t}")
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "mamba2-130m", "phi3-mini-3.8b"])
+def test_init_cache_is_the_references_layout(arch):
+    """Leaf paths, shapes and dtypes of the published configs' caches
+    (the port's on the meta device, the reference's by eval_shape: no
+    memory)."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    want = jax.eval_shape(lambda: jtf.init_cache(jcfg, 3, 40))
+    got = init_cache(cfg, 3, 40, device="meta")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for name in g:
+            assert sorted(g[name]) == sorted(w[name])
+            for key, t in g[name].items():
+                assert tuple(t.shape) == w[name][key].shape
+                assert str(t.dtype).removeprefix("torch.") == \
+                    str(w[name][key].dtype)
+
+
+def test_cache_from_arrays_refuses_a_wrong_shape():
+    cfg = get_config("gemma-7b", reduced=True)
+    tree = convert.cache_arrays(init_cache(cfg, 2, 8, device="cpu"))
+    tree[0]["b0"]["v"] = tree[0]["b0"]["v"][:, :, :, :4]
+    with pytest.raises(ValueError, match="b0/v"):
+        convert.cache_from_arrays(tree, cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the score paths at a query offset, with and without a window
+# ---------------------------------------------------------------------------
+
+def _qkv(seed, Sq, Sk, dtype, H=4, Hkv=2, hd=32):
+    q = _np(seed, 1, H, Sq, hd, scale=0.5)
+    k = _np(seed + 1, 1, Hkv, Sk, hd, scale=0.5)
+    v = _np(seed + 2, 1, Hkv, Sk, hd)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    return ([torch.from_numpy(a).to(dtype) for a in (q, k, v)],
+            [jnp.asarray(a).astype(jdt) for a in (q, k, v)])
+
+
+def _out(got, want, dtype):
+    assert got.dtype == dtype
+    _close(got.float().numpy(), np.asarray(want, np.float32),
+           ATTN_TOL[dtype], "attention")
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+WINDOWS = [None, 7]
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_einsum_attn_matches_reference(dtype, window):
+    (q, k, v), (jq, jk, jv) = _qkv(60, 6, 40, dtype)
+    got = attn._einsum_attn(q, k, v, True, window, 30)
+    _out(got, jattn._einsum_attn(jq, jk, jv, True, window, 30), dtype)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_chunked_attn_matches_reference(dtype, window):
+    """Sk = 3,000 > _EINSUM_MAX_S: two full chunks and a ragged one."""
+    Sk = 3000
+    assert Sk > attn._EINSUM_MAX_S and Sk % attn.CHUNK
+    (q, k, v), (jq, jk, jv) = _qkv(70, 5, Sk, dtype)
+    got = attn._chunked_attn(q, k, v, True, window, Sk - 8)
+    _out(got, jattn._chunked_attn(jq, jk, jv, True, window, Sk - 8), dtype)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pos0", [0, 25])
+def test_decode_attn_delta_matches_reference(dtype, window, pos0):
+    (q, kc, vc), (jq, jkc, jvc) = _qkv(80, 1, 40, dtype)
+    (_, kn, vn), (_, jkn, jvn) = _qkv(90, 1, 1, dtype)
+    got = attn._decode_attn_delta(q, kc, vc, kn, vn, pos0, window)
+    want = jattn._decode_attn_delta(jq, jkc, jvc, jkn, jvn, pos0, window)
+    _out(got, want, dtype)
+    tensor_pos = attn._decode_attn_delta(q, kc, vc, kn, vn,
+                                         torch.tensor(pos0), window)
+    assert torch.equal(tensor_pos, got)
+
+
+@pytest.mark.parametrize("Sq,Sk,offset,causal,path", [
+    (16, 16, 0, True, "kernel"),
+    (8, 16, 0, False, "kernel"),
+    (8, 16, 0, True, "einsum"),        # the kernel aligns the mask apart
+    (4, 16, 12, True, "einsum"),
+    (1, 4000, 3999, True, "einsum"),
+    (4, 3000, 2996, True, "chunked"),
+    (16, 16, "tensor", True, "einsum"),  # a tensor offset is not read
+])
+def test_sdpa_dispatch(monkeypatch, Sq, Sk, offset, causal, path):
+    taken = []
+    for name, tag in (("flash_attention_xla", "kernel"),
+                      ("_einsum_attn", "einsum"),
+                      ("_chunked_attn", "chunked")):
+        monkeypatch.setattr(attn, name,
+                            lambda *a, tag=tag: taken.append(tag))
+    q, k = torch.zeros(1, 2, Sq, 8), torch.zeros(1, 2, Sk, 8)
+    offset = torch.tensor(0) if offset == "tensor" else offset
+    attn.sdpa(q, k, k, causal=causal, q_offset=offset)
+    assert taken == [path]
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+def _port_config(jcfg):
+    """The reference's config rebuilt from the port's config classes,
+    field by field (the port's registry refuses the unported archs)."""
+    def conv(v):
+        if isinstance(v, enum.Enum):
+            return pconfig.BlockKind(v.value)
+        if dataclasses.is_dataclass(v):
+            return getattr(pconfig, type(v).__name__)(**{
+                f.name: conv(getattr(v, f.name))
+                for f in dataclasses.fields(v)})
+        if isinstance(v, tuple):
+            return tuple(conv(x) for x in v)
+        return v
+    return conv(jcfg)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_is_subquadratic_matches_reference(arch):
+    for reduced in (False, True):
+        jcfg = jget_config(arch, reduced=reduced)
+        assert _port_config(jcfg).is_subquadratic() == \
+            jcfg.is_subquadratic()
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("granite-moe-1b-a400m", "11.4a"), ("recurrentgemma-2b", "11.4b"),
+    ("deepseek-v2-lite-16b", "11.4c"), ("whisper-medium", "11.5"),
+    ("pixtral-12b", "11.5")])
+def test_init_cache_refuses_unported_configs(arch, item):
+    cfg = _port_config(jget_config(arch, reduced=True))
+    with pytest.raises(NotImplementedError, match=f"item {item} "):
+        init_cache(cfg, 1, 8, device="cpu")

@@ -110,6 +110,18 @@ def test_model_without_device_needs_a_card():
                   lambda: init_params(cfg, generator=gen(), device="cpu"))
 
 
+def test_cache_and_ssm_state_without_device_need_a_card():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache
+    from repro_torch.models.ssm import init_ssm_state
+    for arch in ("gemma-7b", "mamba2-130m"):
+        cfg = get_config(arch, reduced=True)
+        _needs_a_card(lambda: init_cache(cfg, 2, 8),
+                      lambda: init_cache(cfg, 2, 8, device="cpu"))
+    _needs_a_card(lambda: init_ssm_state(cfg, 2),
+                  lambda: init_ssm_state(cfg, 2, device="cpu"))
+
+
 def test_retrieval_service_without_device_needs_a_card():
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -211,9 +223,7 @@ NOT_PORTED = {
     "checkpoint": {},
     "optim": {},
     "runtime": {},
-    "models": {
-        "prefill": "11.3", "decode_step": "11.3", "init_cache": "11.3",
-    },
+    "models": {},
 }
 
 
