@@ -134,7 +134,32 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                the bf16 forward's own distance to the float32 forward.
                The flash kernel is held against its plain version and
                timed beside ``scaled_dot_product_attention`` at the
-               prefill's inputs (the record's ``prefill_*`` keys).
+               prefill's inputs (the record's ``prefill_*`` keys);
+  moe       -- last, each model freed before the next: granite-moe-1b-a400m
+               at its published width and depth (24 blocks, d_model
+               1,024, 16 heads of 64 with 8 KV heads, 32 experts top-8
+               of width 512, tied head, bf16) trained by
+               ``launch/train.py`` (8 x 1,024 tokens, 16 steps, a
+               checkpoint every 4 in host memory, a failure at step 8,
+               bitwise the uninterrupted run, the loss falling; the
+               balance loss and the dropped choices of every step; step
+               ms, tokens/s, model TFLOP/s on the active parameters and
+               as run, peak memory, a traced step's device time by part;
+               float32 at 2 blocks, the card against the CPU), then
+               decoded as the decode path decodes (8 prompts of 2,048
+               tokens, 32 steps, the drops at the published capacity
+               factor); deepseek-v2-lite-16b (27 MLA blocks, d_model
+               2,048, q/k 192 and v 128, a dense block then 26 MoE
+               blocks of 64 experts top-6 with 2 shared experts) decoded
+               the same way at its full depth (its latent cache
+               517,570,560 bytes), then trained cut to 3 blocks (2 x
+               1,024 tokens, the same run and checks).  Decode against
+               the forward at 2 blocks with the capacity factor raised
+               to E / K (no drops).  The flash forward at both prefills
+               (deepseek's v zero-padded from 128 to 192: its ms and
+               bytes) beside ``scaled_dot_product_attention``, and the
+               flash gradient at one layer's training inputs of each,
+               bitwise on a second launch (the records' ``moe`` keys).
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers (forward and gradient) also count
@@ -261,6 +286,27 @@ LONG_BATCH, LONG_SEQ = 1, 8192
 # in bf16 at DECODE_CUT blocks against rounding's own reach
 DECODE_RUNS = {"gemma-7b": (8, 2048, 32), "mamba2-130m": (8, 1024, 32)}
 DECODE_CHECK, DECODE_CUT, DECODE_F32_TOL = (2, 256, 8), 2, 2e-3
+# the moe path, last: the two MoE configs at their published widths in
+# bf16 -- arch -> (layers, d_model, heads, kv heads, q/k head width, v
+# width, experts, top-k) -- each decoded at its full depth as the decode
+# path decodes (MOE_DECODE = (batch, prompt, steps)) and trained by
+# launch/train.py (MOE_TRAIN: arch -> (blocks kept, batch, tokens a
+# sequence); granite at its full 24, deepseek cut to its dense block and
+# two MoE blocks: its 15.7 B parameters with bf16 gradients and float32
+# AdamW moments need ~190 GB), MOE_STEPS steps with a failure at
+# MOE_FAIL_AT and a checkpoint every MOE_CKPT_EVERY in host memory; the
+# float32 card-vs-CPU checks at DECODE_CUT blocks on MOE_F32_TOKENS tokens
+MOE_WIDTHS = {"granite-moe-1b-a400m": (24, 1024, 16, 8, 64, 64, 32, 8),
+              "deepseek-v2-lite-16b": (27, 2048, 16, 16, 192, 128, 64, 6)}
+MOE_TRAIN = {"granite-moe-1b-a400m": (None, 8, 1024),
+             "deepseek-v2-lite-16b": (3, 2, 1024)}
+MOE_STEPS, MOE_CKPT_EVERY, MOE_FAIL_AT, MOE_TIMED = 16, 4, 8, 3
+MOE_DECODE, MOE_F32_TOKENS = (8, 2048, 32), 96
+# the operators only a MoE layer runs in a training step (the router's
+# softmax, the top-k and rank sorts, the dispatch scatter, the combine
+# gather and their backward): the traced step's routing/dispatch/combine
+MOE_OPS = ("sort", "searchsorted", "index_put", "index_select", "index_add",
+           "gather", "scatter", "bincount", "softmax")
 
 
 def check(cond, msg):
@@ -1674,14 +1720,15 @@ def flash_measure(q, k, v, causal, where):
     row_err, median = flash_rows(got, want, where)
     del want
     library_ms, _ = timed(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal), REPS)
+        q, k, v, is_causal=causal, **_gqa(q, k)), REPS)
     B, H, S, dh = q.shape
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
     pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[2])
-    flops = 4.0 * pairs * dh            # q.k and p.v, 2 FLOPs a product
+    # q.k over dh and p.v over v's width, 2 FLOPs a multiply-add
+    flops = 2.0 * pairs * (dh + v.shape[-1])
     bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
     print(f"flash_attention ({design}) at {where}: q {tuple(q.shape)} "
-          f"{q.dtype}, v strides {v.stride()}: {ms:.4f} ms "
+          f"{q.dtype}, v {tuple(v.shape)} strides {v.stride()}: {ms:.4f} ms "
           f"(plain {plain_ms:.3f} ms, scaled_dot_product_attention "
           f"{library_ms:.4f} ms, bound {bound:.4f} ms: {nbytes / 1e6:.1f} "
           f"MB, {flops / 1e9:.2f} GFLOP), max |err| {err:.3g}; by row, "
@@ -1692,6 +1739,12 @@ def flash_measure(q, k, v, causal, where):
             "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms}
+
+
+def _gqa(q, k):
+    """``scaled_dot_product_attention``'s keyword for grouped kv heads,
+    where q has more heads than k (granite's 16 against 8)."""
+    return {"enable_gqa": True} if q.shape[1] != k.shape[1] else {}
 
 
 def flash_record(a, kw, launches, by_design, hmma):
@@ -2520,6 +2573,28 @@ def flash_bwd_record(a, kw, launches, by_design, hmma):
     (q, k, v, o, lse, dout) of a training step, and against itself: two
     launches bitwise equal; PyTorch's fused attention's backward at the
     same inputs is the library time (measured only)."""
+    got = flash_bwd_measure(a, kw, "the train_dense path's inputs")
+    design = got.pop("design")
+    return {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/flash_xla.py:96",
+        "replaces_note": "no Pallas counterpart: the reference's custom "
+                         "VJP runs its backward as an XLA lax.scan",
+        "launches": launches, **got,
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "backward (torch.autograd.grad)",
+        "design": design, "launches_by_design": by_design,
+        "sass_hmma": hmma}
+
+
+def flash_bwd_measure(a, kw, where):
+    """The flash gradient kernel at (q, k, v, o, lse, dout): its design
+    (which must be "tensor_core"), ms beside its plain version's and
+    ``scaled_dot_product_attention``'s backward, its error against the
+    plain version (each output within FLASH_BWD_TOL of its largest
+    magnitude), two launches bitwise equal, and its bound.  v, o and
+    dout may be narrower than q and k (MLA): the wrapper pads them."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
@@ -2528,20 +2603,22 @@ def flash_bwd_record(a, kw, launches, by_design, hmma):
     q, k, v, o, lse, dout = a
     causal = kw.get("causal", True)
     B, H, S, dh = q.shape
+    dv = v.shape[-1]
     strides = [s for t in (q, k, v, o, dout) for s in t.stride()[:3]]
     design = kfa.bwd_plan(q.dtype, dh, S, k.shape[2], strides=strides,
                           aligned=all(t.data_ptr() % 16 == 0
                                       for t in a)).design
-    check(design == "tensor_core", f"flash_attention_bwd plans {design}")
+    check(design == "tensor_core", f"flash_attention_bwd plans {design} at "
+          f"{where}")
     ms, got = timed(lambda: kfa.flash_attention_bwd_cuda(*a, **kw), REPS)
     again = kfa.flash_attention_bwd_cuda(*a, **kw)
     bitwise = all(torch.equal(g, h) for g, h in zip(got, again))
-    check(bitwise, "two launches of flash_attention_bwd differ")
+    check(bitwise, f"two launches of flash_attention_bwd differ at {where}")
     plain_ms, want = timed(lambda: ref.flash_attention_bwd_ref(*a, **kw), 1)
     errs, rel = {}, {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         check(bool(torch.isfinite(g.float()).all()),
-              f"flash_attention_bwd {name} is not finite")
+              f"flash_attention_bwd {name} is not finite at {where}")
         g, w = g.float(), w.float()
         errs[name] = float((g - w).abs().max())
         scale = float(w.abs().max())
@@ -2549,10 +2626,12 @@ def flash_bwd_record(a, kw, launches, by_design, hmma):
         check(torch.allclose(g, w, rtol=FLASH_BWD_TOL,
                              atol=FLASH_BWD_TOL * scale),
               f"flash_attention_bwd {name} differs from its plain version "
-              f"by {errs[name]} (largest |value| {scale})")
+              f"by {errs[name]} (largest |value| {scale}) at {where}")
+    del want
     qd, kd, vd = (t.clone().requires_grad_() for t in (q, k, v))
     with torch.enable_grad():
-        lib_out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal)
+        lib_out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal,
+                                                 **_gqa(q, k))
         library_ms, _ = timed(lambda: torch.autograd.grad(
             lib_out, (qd, kd, vd), dout, retain_graph=True), REPS)
     del lib_out
@@ -2560,29 +2639,22 @@ def flash_bwd_record(a, kw, launches, by_design, hmma):
               + lse.numel() * 4
               + sum(t.numel() * t.element_size() for t in got))
     pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[2])
-    flops = 10.0 * pairs * dh     # five products, 2 FLOPs a multiply-add
+    # five products, 2 FLOPs a multiply-add: q.k, dq and dk over dh; dO.v
+    # and dv over v's width
+    flops = 2.0 * pairs * (3 * dh + 2 * dv)
     bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
-    print(f"flash_attention_bwd ({design}): q {tuple(q.shape)} {q.dtype} "
-          f"strides {q.stride()}, dout strides {dout.stride()}: {ms:.4f} ms "
-          f"(plain {plain_ms:.2f} ms, scaled_dot_product_attention's "
-          f"backward {library_ms:.4f} ms, bound {bound:.4f} ms: "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), max |err| "
-          f"{errs}, over the largest |value| {rel} (tolerance "
-          f"{FLASH_BWD_TOL}), two launches bitwise equal")
-    return {
-        "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "replaces": "src/repro/models/flash_xla.py:96",
-        "replaces_note": "no Pallas counterpart: the reference's custom "
-                         "VJP runs its backward as an XLA lax.scan",
-        "launches": launches, "max_abs_err": max(errs.values()),
-        "max_abs_err_by_output": errs, "max_rel_err_by_output": rel,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-        "library_ms": library_ms,
-        "library": "torch.nn.functional.scaled_dot_product_attention "
-                   "backward (torch.autograd.grad)",
-        "design": design, "launches_by_design": by_design,
-        "bitwise_repeat": bitwise, "sass_hmma": hmma}
+    print(f"flash_attention_bwd ({design}) at {where}: q {tuple(q.shape)} "
+          f"{q.dtype} strides {q.stride()}, v {tuple(v.shape)}, dout strides "
+          f"{dout.stride()}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+          f"scaled_dot_product_attention's backward {library_ms:.4f} ms, "
+          f"bound {bound:.4f} ms: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+          f"GFLOP), max |err| {errs}, over the largest |value| {rel} "
+          f"(tolerance {FLASH_BWD_TOL}), two launches bitwise equal")
+    return {"max_abs_err": max(errs.values()),
+            "max_abs_err_by_output": errs, "max_rel_err_by_output": rel,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, "design": design,
+            "bitwise_repeat": bitwise}
 
 
 def flash_bwd_long(seed):
@@ -2664,8 +2736,10 @@ def _teacher_forced(model, tokens, S, T):
     from repro_torch.models import decode_step, init_cache, prefill
     cache = init_cache(model.cfg, tokens.shape[0], S + T,
                        device=tokens.device)
+    # K/V (R, B, Hkv, Smax, hd) and MLA's latent (R, B, Smax, width): the
+    # position axis is the one before the last
     kv = [t for seg in cache for blk in seg.values()
-          for key, t in blk.items() if key in ("k", "v")]
+          for key, t in blk.items() if key in ("k", "v", "ckv", "kpe")]
     stray = torch.zeros((), dtype=torch.int64, device=tokens.device)
     marks = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(T + 1)]
@@ -2710,10 +2784,23 @@ def _decode_tokens(cfg, seed, B, n):
 
 def decode_checks(cfg, seed):
     """The decode path held to the full-sequence forward (DECODE_CHECK
-    tokens, B x (S + T)): in float32 on the card within DECODE_F32_TOL
-    (gemma-7b cut to DECODE_CUT blocks, mamba2-130m at its full depth),
-    and in bf16 at DECODE_CUT blocks within twice the bf16 forward's own
-    distance to the float32 forward on the same weights."""
+    tokens, B x (S + T)) on every row: in float32 on the card within
+    DECODE_F32_TOL (gemma-7b and the MoE configs cut to DECODE_CUT
+    blocks, mamba2-130m at its full depth), and in bf16 at DECODE_CUT
+    blocks within twice the bf16 forward's own distance to the float32
+    forward on the same weights.
+
+    A MoE config runs both at the capacity factor E / K, where no token
+    drops (C >= the tokens of a call): at the published factor a decode
+    step of B tokens has far fewer slots an expert than the forward's
+    one call over all B x (S + T) tokens, and drops by design what the
+    forward keeps.  Float32 runs the published top-K, so a token that
+    decode and the forward route apart fails it.  The bf16 check routes
+    every token to all E experts (top-K = E, capacity factor 1): bf16
+    rounding moves router inputs across the near-ties of a random
+    router, which flips discrete choices and moves logits by far more
+    than rounding's reach; with all E chosen there is no choice to
+    flip."""
     import dataclasses
 
     import torch
@@ -2724,8 +2811,18 @@ def decode_checks(cfg, seed):
     tokens = _decode_tokens(cfg, seed + 1, B, S + T)
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa
-    m16 = init_params(cut_depth(cfg, DECODE_CUT), generator=gen(),
-                      device="cuda")
+    moe16 = moe32 = {}
+    note16 = note32 = ""
+    if cfg.moe is not None:
+        E, K = cfg.moe.n_experts, cfg.moe.top_k
+        moe16 = dict(moe=dataclasses.replace(cfg.moe, top_k=E,
+                                             capacity_factor=1.0))
+        moe32 = dict(moe=dataclasses.replace(cfg.moe, capacity_factor=E / K))
+        note16 = f", all {E} experts (no drops)"
+        note32 = f", top-{K} at capacity factor {E / K:.4g} (no drops)"
+    m16 = init_params(dataclasses.replace(cut_depth(cfg, DECODE_CUT),
+                                          **moe16),
+                      generator=gen(), device="cuda")
     m32 = Transformer(dataclasses.replace(m16.cfg, **f32), "cuda")
     load_param_tree(m32, param_tree(m16))
     dec16 = _teacher_forced(m16, tokens, S, T)[0]
@@ -2733,8 +2830,8 @@ def decode_checks(cfg, seed):
     fwd32 = _forward_rows(m32, tokens, S, T)
     gap = float((dec16 - fwd16).abs().max())
     reach = float((fwd16 - fwd32).abs().max())
-    print(f"decode {cfg.name} bf16 at {DECODE_CUT} blocks, {B} x ({S} + "
-          f"{T}) tokens: max |decode - forward| {gap:.4g}, the bf16 "
+    print(f"decode {cfg.name} bf16 at {DECODE_CUT} blocks{note16}, {B} x "
+          f"({S} + {T}) tokens: max |decode - forward| {gap:.4g}, the bf16 "
           f"forward's own max |bf16 - float32| {reach:.4g} (limit "
           f"{2 * reach:.4g})")
     check(bool(torch.isfinite(dec16).all()) and gap <= 2 * reach,
@@ -2744,11 +2841,15 @@ def decode_checks(cfg, seed):
     if cfg.is_attention_free():      # mamba2: float32 at its full depth
         m32 = init_params(dataclasses.replace(cfg, **f32), generator=gen(),
                           device="cuda")
+    elif moe32:                      # float32 at the published top-K
+        routed = Transformer(dataclasses.replace(m32.cfg, **moe32), "cuda")
+        load_param_tree(routed, param_tree(m32))
+        m32 = routed
     dec32 = _teacher_forced(m32, tokens, S, T)[0]
     fwd32 = _forward_rows(m32, tokens, S, T)
     err = float((dec32 - fwd32).abs().max())
-    print(f"decode {cfg.name} float32 at {m32.cfg.n_layers} blocks, {B} x "
-          f"({S} + {T}) tokens: max |decode - forward| {err:.3g} "
+    print(f"decode {cfg.name} float32 at {m32.cfg.n_layers} blocks{note32}, "
+          f"{B} x ({S} + {T}) tokens: max |decode - forward| {err:.3g} "
           f"(rtol = atol = {DECODE_F32_TOL})")
     check(torch.allclose(dec32, fwd32, rtol=DECODE_F32_TOL,
                          atol=DECODE_F32_TOL),
@@ -2861,6 +2962,484 @@ def flash_prefill(a, launches):
     got.pop("design")
     return {"prefill_launches": launches, "prefill_shape": list(q.shape),
             **{f"prefill_{key}": val for key, val in got.items()}}
+
+
+class MoEStats:
+    """Stands in for ``models.moe``'s ``route`` and ``balance_loss``
+    while a run goes (``with MoEStats() as st``): every call goes to the
+    real function and its dropped choices and balance loss are kept as
+    device tensors (``drops``, ``aux``), read after the run, in call
+    order -- in a training step each MoE block's forward, then its
+    rematerialisation in the backward."""
+
+    def __init__(self):
+        self.drops, self.aux = [], []
+
+    def route(self, *a, **kw):
+        r = self.real[0](*a, **kw)
+        self.drops.append((~r.keep).sum())
+        return r
+
+    def balance_loss(self, *a, **kw):
+        aux = self.real[1](*a, **kw)
+        self.aux.append(aux.detach())
+        return aux
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.real = moe.route, moe.balance_loss
+        moe.route, moe.balance_loss = self.route, self.balance_loss
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route, moe.balance_loss = self.real
+
+    def read(self):
+        """(drops, aux) as host lists."""
+        import torch
+        if not self.drops:
+            return [], []
+        return (torch.stack(self.drops).tolist(),
+                torch.stack(self.aux).tolist())
+
+
+def _moe_blocks(cfg):
+    return sum(len(s.kinds) * s.repeat for s in cfg.segments if s.moe)
+
+
+def moe_params(cfg):
+    """(all parameters, active parameters, expert-stack parameters): a
+    token runs top_k of the n_experts experts of each MoE block, so the
+    active count takes each block's stacks (3 E d f) at K / E:
+    active = all - (1 - K / E) x experts."""
+    from repro_torch.models import count_params
+    m = cfg.moe
+    experts = _moe_blocks(cfg) * 3 * m.n_experts * cfg.d_model * m.d_ff_expert
+    n = count_params(cfg)
+    return n, n - experts * (1 - m.top_k / m.n_experts), experts
+
+
+def moe_expert_flops(cfg, tokens):
+    """(the FLOPs a forward's expert products do as run -- every one of the
+    E x C capacity-padded slots of each MoE block, C = ``moe.capacity``
+    of the call's tokens -- and those of the tokens' own top-k choices),
+    2 FLOPs a multiply-add, three products a slot."""
+    from repro_torch.models import moe
+    m = cfg.moe
+    per_slot = 2 * 3 * cfg.d_model * m.d_ff_expert * _moe_blocks(cfg)
+    return (per_slot * m.n_experts * moe.capacity(cfg, tokens),
+            per_slot * tokens * m.top_k)
+
+
+def moe_step_parts(fn, cfg, adamw_ms):
+    """Trace one training step (after a warm one) and split its device
+    time: the flash forward and gradient kernels by name; the expert
+    products (the kernels of ``aten::bmm``, which in a training step only
+    the MoE layers call, forward and backward); the other products
+    (gemm kernels elsewhere: projections, the router, the head); the
+    routing/dispatch/combine (the kernels of the operators in MOE_OPS,
+    less the embedding's backward, an ``index_put`` into the table);
+    AdamW (``adamw_ms``, the update timed alone); and the glue, the
+    rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    part = dict.fromkeys(("flash_fwd", "flash_bwd", "expert_products",
+                          "other_products", "routing_dispatch_combine",
+                          "adamw", "glue"), 0.0)
+    busy, launches, products, other = 0.0, 0, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        ms, key = e.self_device_time_total / 1e3, e.key.lower()
+        busy, launches = busy + ms, launches + e.count
+        if "fa_bwd" in key:
+            part["flash_bwd"] += ms
+        elif "flash_attention" in key:
+            part["flash_fwd"] += ms
+        elif any(w in key for w in ("gemm", "xmma", "cutlass", "nvjet")):
+            products += ms
+        else:
+            other += ms
+    table = [cfg.vocab_padded, cfg.d_model]
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0:
+            continue
+        ms, key = e.self_device_time_total / 1e3, e.key
+        shapes = getattr(e, "input_shapes", None) or [[]]
+        if key == "aten::bmm":
+            part["expert_products"] += ms
+        elif (any(w in key for w in MOE_OPS)
+              and not ("index_put" in key and list(shapes[0]) == table)):
+            part["routing_dispatch_combine"] += ms
+    part["other_products"] = products - part["expert_products"]
+    part["adamw"] = adamw_ms
+    part["glue"] = other - part["routing_dispatch_combine"] - adamw_ms
+    print(f"profile: one {cfg.name} training step {wall:.2f} ms wall, device "
+          f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%), {launches} kernel "
+          f"launches; device ms by part: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in part.items())
+          + " (adamw: the update of the whole state timed alone; glue: "
+            "the rest)")
+    return {"wall_ms": wall, "busy_ms": busy, "launches": launches, **part}
+
+
+def moe_train(args, arch, captured):
+    """``arch`` at its published width (cut as MOE_TRAIN says) trained by
+    ``launch/train.py`` through the flash forward and gradient kernels
+    and AdamW in the fault-tolerant loop, with an injected failure whose
+    replay must repeat an uninterrupted run bit for bit; the balance loss
+    and the dropped choices of every step; the step's ms, tokens/s, model
+    TFLOP/s on the active parameters, peak memory and a traced step by
+    part; float32 at DECODE_CUT blocks, the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import (Transformer, init_params, load_param_tree,
+                                    param_tree, value_and_grad)
+    from repro_torch.models.moe import capacity
+    layers, batch, seq = MOE_TRAIN[arch]
+    cfg = train.cut_depth(get_config(arch), layers)
+    n_params, active, experts = moe_params(cfg)
+    n_moe = _moe_blocks(cfg)
+    tokens = batch * seq
+    padded, own = moe_expert_flops(cfg, tokens)
+    C = capacity(cfg, tokens)
+    print(f"phase moe train {arch}: {cfg.n_layers} of "
+          f"{MOE_WIDTHS[arch][0]} blocks ({n_moe} MoE), {n_params / 1e9:.3f} "
+          f"B parameters (count_params), {active / 1e9:.3f} B active "
+          f"(all - (1 - K/E) x the {experts / 1e9:.3f} B of the expert "
+          f"stacks), {batch} x {seq} tokens a step; a forward's expert "
+          f"products do {padded / 1e12:.3f} TFLOP as run ({cfg.moe.n_experts}"
+          f" x {C} capacity-padded slots a block) against {own / 1e12:.3f} "
+          f"for the tokens' own top-{cfg.moe.top_k} choices")
+    ops.flash_attention_cuda = kfa.flash_attention_cuda
+    ops.flash_attention_bwd_cuda = recorder(
+        captured, f"flash_attention_bwd {arch}", kfa.flash_attention_bwd_cuda)
+    runs = {}
+    for name, fail in ((f"failure at step {MOE_FAIL_AT}", True),
+                       ("uninterrupted", False)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as ck:
+            argv = ["--arch", arch, "--steps", str(MOE_STEPS), "--batch",
+                    str(batch), "--seq", str(seq), "--lr", "3e-4",
+                    "--ckpt-dir", ck, "--ckpt-every", str(MOE_CKPT_EVERY),
+                    "--device", "cuda", "--seed", str(args.seed)]
+            argv += ["--layers", str(layers)] if layers else []
+            argv += ["--fail-at", str(MOE_FAIL_AT)] if fail else []
+            _reset_launches()
+            held = torch.cuda.memory_allocated()   # by the earlier paths
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with MemoryCheckpoints() as ckpts, MoEStats() as st:
+                stats = train.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = _launch_counts()
+        by_design = {
+            "flash_attention": dict(
+                kfa.flash_attention_cuda.launches_by_design),
+            "flash_attention_bwd": dict(
+                kfa.flash_attention_bwd_cuda.launches_by_design)}
+        runs[name] = (stats, st.read(), launches, by_design)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        print(f"phase moe train {arch} ({name}): {stats.steps_run} steps, "
+              f"{stats.restarts} restarts, {secs:.1f} s with the token draws "
+              f"and {ckpts.saves} checkpoints of {ckpts.nbytes / 1e9:.2f} GB "
+              f"in host memory ({ckpts.seconds:.1f} s to save and restore); "
+              f"loss {stats.losses[0]:.4f} -> {stats.losses[-1]:.4f}; "
+              f"launches {launches}, by design {by_design}; peak device "
+              f"memory {peak:.2f} GiB above the {held / 2**30:.2f} GiB held "
+              f"before the run")
+        n = stats.steps_run
+        check(launches["flash_attention"] == 2 * cfg.n_layers * n,
+              "each step launches the flash kernel twice a layer (forward "
+              "and the rematerialised forward)")
+        check(launches["flash_attention_bwd"] == cfg.n_layers * n,
+              "each step launches the flash gradient kernel once a layer")
+        for k, designs in by_design.items():
+            check(designs["tensor_core"] == launches[k],
+                  f"every training launch of {k} must take the tensor-core "
+                  f"design: {by_design[k]}")
+        check(all(math.isfinite(v) for v in stats.losses),
+              "non-finite training loss")
+        check(np.mean(stats.losses[-5:]) < np.mean(stats.losses[:5]),
+              f"{arch}: the loss did not fall")
+        torch.cuda.empty_cache()
+    (failed, *_), (clean, (drops, aux), launches, by_design) = (
+        runs[f"failure at step {MOE_FAIL_AT}"], runs["uninterrupted"])
+    want = _replayed(clean.losses, (MOE_FAIL_AT,), MOE_CKPT_EVERY)
+    check(failed.restarts == 1 and failed.losses == want,
+          f"{arch}: the run with a failure must repeat the uninterrupted "
+          f"run's loss trajectory bit for bit")
+    # each step: every MoE block's forward, then its rematerialisation
+    per = 2 * n_moe
+    check(len(drops) == MOE_STEPS * per, f"{len(drops)} MoE calls in "
+          f"{MOE_STEPS} steps of {n_moe} MoE blocks")
+    step_aux = [sum(aux[i * per:i * per + n_moe]) for i in range(MOE_STEPS)]
+    step_drops = [sum(drops[i * per:i * per + n_moe])
+                  for i in range(MOE_STEPS)]
+    check(all(math.isfinite(a) and a > 0 for a in step_aux),
+          f"{arch}: a balance loss is not finite and positive")
+    print(f"moe train {arch}: the replayed trajectory equals the "
+          f"uninterrupted one bitwise over {len(want)} losses; losses "
+          f"{[round(v, 4) for v in clean.losses]}; balance loss a step "
+          f"(summed over the {n_moe} MoE blocks) "
+          f"{[round(a, 4) for a in step_aux]}; dropped choices a step (of "
+          f"{tokens * cfg.moe.top_k * n_moe}) {step_drops}")
+    out = {"blocks": cfg.n_layers, "params": n_params,
+           "launches": launches, "launches_by_design": by_design,
+           "active_params": active, "batch": batch, "seq": seq,
+           "losses": clean.losses, "balance_loss": step_aux,
+           "dropped": step_drops, "capacity": C,
+           "expert_tflop_as_run": padded / 1e12,
+           "expert_tflop_own": own / 1e12}
+
+    # ---- step time, tokens/s, model FLOP/s, peak memory, the trace -------
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    params = param_tree(model)
+    pipe = TokenPipeline(cfg.vocab, batch, seq, seed=args.seed,
+                         device="cuda")
+    draw_ms, data = timed(lambda: pipe._batch_at(0), 1)
+    opt_cfg = optim.AdamWConfig(warmup_steps=10, total_steps=MOE_STEPS)
+    step = train.make_step(model, opt_cfg)
+    with train.deterministic():
+        state = (params, optim.init(params))
+        del params
+        held = torch.cuda.memory_allocated()   # with the model and state
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = _each_ms(lambda: step(state, data), MOE_TIMED)
+        peak = torch.cuda.max_memory_allocated()
+        tokens_s = tokens / (step_ms / 1e3)
+        tflops = 6 * active * tokens / (step_ms / 1e3) / 1e12
+        run_tflops = (6 * (n_params - experts) * tokens + 4 * padded) / (
+            step_ms / 1e3) / 1e12
+        print(f"moe train {arch} step: {step_ms:.2f} ms (CUDA events, mean "
+              f"of {MOE_TIMED} after one warm-up; forward, backward and "
+              f"AdamW), {tokens_s:.0f} tokens/s, {tflops:.2f} model TFLOP/s "
+              f"(6 x {active / 1e9:.3f} B active parameters x {tokens} "
+              f"tokens), {run_tflops:.2f} TFLOP/s as run (6 x the "
+              f"{(n_params - experts) / 1e9:.3f} B outside the expert stacks "
+              f"x tokens + 4 x the expert products' {padded / 1e12:.3f} "
+              f"TFLOP: forward, its rematerialisation, backward twice); "
+              f"peak device memory {peak / 2**30:.2f} GiB "
+              f"({(peak - held) / 2**30:.2f} above the {held / 2**30:.2f} GiB "
+              f"of the model, its state, the batch and earlier paths); "
+              f"TokenPipeline draw {draw_ms:.1f} ms a batch")
+        _, grads = value_and_grad(model, *data)
+        adamw_ms = _each_ms(lambda: optim.update(opt_cfg, grads, state[1],
+                                                 state[0]), MOE_TIMED)
+        del grads
+        parts = moe_step_parts(lambda: step(state, data), cfg, adamw_ms)
+    out.update(step_ms=step_ms, tokens_s=tokens_s, model_tflops=tflops,
+               as_run_tflops=run_tflops, peak_gib=peak / 2**30,
+               draw_ms=draw_ms, traced_step=parts)
+    few = (data[0][:1, :MOE_F32_TOKENS].cpu(),
+           data[1][:1, :MOE_F32_TOKENS].cpu())
+    del state, step, model, data
+    torch.cuda.empty_cache()
+
+    # ---- float32 at DECODE_CUT blocks of the published width --------------
+    c16 = train.cut_depth(get_config(arch), DECODE_CUT)
+    c32 = dataclasses.replace(c16, param_dtype="float32",
+                              compute_dtype="float32")
+    m16 = init_params(c16, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    m32 = Transformer(c32, "cpu")
+    load_param_tree(m32, param_tree(m16))
+    del m16
+    t0 = time.perf_counter()
+    l32, g32 = value_and_grad(m32, *few)
+    print(f"moe train {arch} float32 on the CPU: {time.perf_counter() - t0:.1f}"
+          f" s")
+    out["f32_card_vs_cpu"] = f32_card_vs_cpu(c32, m32, few, l32, g32, False)
+    del m32, g32
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_decode(args, arch, captured):
+    """``arch`` at its published width and depth (bf16, weights from
+    --seed): MOE_DECODE's prompts prefilled into a cache and teacher-forced
+    decode steps, as the decode path runs them; the dropped choices at
+    the published capacity factor (at the prefill and at decode, counted
+    in the warm-up run); every cache row not written yet zero; the
+    forward at the decoded positions (reported); ``decode_checks`` with
+    the capacity factor raised to E / K."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_params
+    from repro_torch.models.moe import capacity
+    B, S, T = MOE_DECODE
+    cfg = get_config(arch)
+    K = cfg.moe.top_k
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.hd if cfg.mla is None else cfg.mla.nope_dim + cfg.mla.rope_dim,
+           cfg.hd if cfg.mla is None else cfg.mla.v_dim,
+           cfg.moe.n_experts, cfg.moe.top_k)
+    check(got == MOE_WIDTHS[arch] and cfg.cdtype == torch.bfloat16,
+          f"{arch} must decode at its published width and depth: {got}")
+    n_moe = _moe_blocks(cfg)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    tokens = _decode_tokens(cfg, args.seed, B, S + T)
+    with MoEStats() as st:                    # the warm-up run
+        _teacher_forced(model, tokens, S, 2)
+    drops, _ = st.read()
+    check(len(drops) == 3 * n_moe, f"{len(drops)} MoE calls")
+    prefill_drops = sum(drops[:n_moe])
+    decode_drops = [sum(drops[n_moe * i:n_moe * (i + 1)]) for i in (1, 2)]
+    print(f"moe decode {arch}: dropped choices at capacity factor "
+          f"{cfg.moe.capacity_factor}: prefill {prefill_drops} of "
+          f"{B * S * K * n_moe} (C = {capacity(cfg, B * S)} an expert), "
+          f"a decode step {decode_drops} of {B * K * n_moe} (C = "
+          f"{capacity(cfg, B)})")
+    # ---- the path: counts to 0, drive, read --------------------------------
+    ops.flash_attention_cuda = recorder(
+        captured, f"flash_attention_prefill {arch}", kfa.flash_attention_cuda)
+    _reset_launches()
+    dec, cache, prefill_ms, step_ms = _teacher_forced(model, tokens, S, T)
+    launches = _launch_counts()
+    by_design = dict(kfa.flash_attention_cuda.launches_by_design)
+    ops.flash_attention_cuda = kfa.flash_attention_cuda
+    step = float(sorted(step_ms)[T // 2])
+    cache_bytes = sum(t.nbytes for seg in cache for blk in seg.values()
+                      for t in blk.values())
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention"] = cfg.n_layers
+    check(launches == want, f"{arch}: decode launches {launches}, expected "
+          f"{want} (the flash kernel once a block in the prefill)")
+    check(by_design["tensor_core"] == cfg.n_layers,
+          f"every prefill launch must take the tensor-core design: "
+          f"{by_design}")
+    if cfg.mla is not None:
+        m = cfg.mla
+        latent = (cfg.n_layers * B * (S + T) * (m.kv_lora + m.rope_dim)
+                  * cache[0]["b0"]["ckv"].element_size())
+        check(cache_bytes == latent, f"latent cache {cache_bytes} bytes, "
+              f"expected {latent}")
+    print(f"phase moe decode {arch}: {cfg.n_layers} blocks, B = {B}, prompt "
+          f"{S}, {T} steps, Smax {S + T}: prefill {prefill_ms:.2f} ms, decode "
+          f"{step:.3f} ms a step (median; min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}), {B / step * 1e3:.1f} tokens/s; cache "
+          f"{cache_bytes} bytes; peak device memory {peak:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held before; launches {launches}, flash "
+          f"by design {by_design}")
+    last = S + T - 1
+    rows, wall, n = traced(lambda: decode_step(
+        model, tokens[:, last:last + 1], cache, last),
+        f"one {arch} decode step")
+    parts = device_parts(rows, "flash_attention")
+    print(f"moe decode {arch} step device ms by part: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+    del cache
+    fwd = _forward_rows(model, tokens, S, T)
+    check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(fwd).all()),
+          f"{arch}: non-finite logits")
+    err = float((dec - fwd).abs().max())
+    top1 = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    print(f"moe decode {arch} bf16 at {cfg.n_layers} blocks against the "
+          f"forward at the {T + 1} decoded positions (reported, not checked: "
+          f"the forward routes all B x (S + T) tokens in one call, decode "
+          f"B at a time, so their drops differ): max |logit difference| "
+          f"{err:.4g}, top-1 agreement {top1:.4f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model, dec, fwd
+    torch.cuda.empty_cache()
+    checks = decode_checks(cfg, args.seed)
+    return {"batch": B, "prompt": S, "steps": T,
+            "prefill_ms": prefill_ms, "decode_step_ms": step,
+            "decode_step_ms_each": step_ms, "tokens_per_s": B / step * 1e3,
+            "cache_bytes": cache_bytes, "peak_gib": peak,
+            "launches": launches, "prefill_dropped": prefill_drops,
+            "decode_dropped": decode_drops, "bf16_max_abs_err": err,
+            "bf16_top1_agreement": top1, "traced_step_wall_ms": wall,
+            "traced_step_launches": n, "traced_step_device_ms": parts,
+            **checks}
+
+
+def flash_pad_cost(q, v):
+    """The forward wrapper's zero-padding of a v narrower than q (MLA):
+    its ms alone (CUDA events) and the bytes it adds -- v read and the
+    padded v written by the pad, then the kernel's extra columns of v
+    read and of O written."""
+    from repro_torch.kernels import flash_attention as kfa
+    dh, dv = q.shape[-1], v.shape[-1]
+    ms, _ = timed(lambda: kfa._widen(v, dh), REPS)
+    rows = v.numel() // dv
+    extra = (rows * (dv + dh) + rows * (dh - dv)
+             + q.numel() // dh * (dh - dv)) * v.element_size()
+    return ms, extra
+
+
+def moe_path(args, captured):
+    """The two MoE configs in turn, each model freed before the next:
+    granite-moe-1b-a400m trained and decoded, deepseek-v2-lite-16b
+    decoded and trained; then the flash kernels at their prefill and
+    training inputs.  Returns the path's numbers and the flash records'
+    keys."""
+    import torch
+    out, fwd_keys, bwd_keys = {}, {}, {}
+    t_path = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for arch, order in (("granite-moe-1b-a400m", ("train", "decode")),
+                        ("deepseek-v2-lite-16b", ("decode", "train"))):
+        out[arch] = {}
+        for what in order:
+            t0 = time.perf_counter()
+            run = moe_train if what == "train" else moe_decode
+            out[arch][what] = run(args, arch, captured)
+            out[arch][what]["seconds"] = time.perf_counter() - t0
+            print(f"phase moe {what} {arch}: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+        (q, k, v), kw = captured.pop(f"flash_attention_prefill {arch}")
+        rec = flash_measure(q, k, v, kw.get("causal", True),
+                            f"the moe path's {arch} prefill inputs")
+        if v.shape[-1] != q.shape[-1]:
+            rec["pad_ms"], rec["pad_bytes"] = flash_pad_cost(q, v)
+            print(f"flash_attention at {arch}'s prefill: v zero-padded from "
+                  f"{v.shape[-1]} to {q.shape[-1]} columns, {rec['pad_ms']:.4f}"
+                  f" ms alone, {rec['pad_bytes'] / 1e6:.1f} MB more traffic")
+        rec.update(shape=list(q.shape), v_width=v.shape[-1],
+                   launches=out[arch]["decode"]["launches"]["flash_attention"])
+        fwd_keys[arch] = rec
+        del q, k, v
+        a, kw = captured.pop(f"flash_attention_bwd {arch}")
+        bwd_keys[arch] = flash_bwd_measure(
+            a, kw, f"the moe path's {arch} training inputs")
+        bwd_keys[arch].update(shape=list(a[0].shape), v_width=a[2].shape[-1])
+        del a
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    secs = time.perf_counter() - t_path
+    print(f"phase moe: {secs:.1f} s; peak device memory {peak:.2f} GiB with "
+          f"the {held / 2**30:.2f} GiB earlier paths hold")
+    out["seconds"], out["peak_gib"] = secs, peak
+    return out, fwd_keys, bwd_keys
 
 
 def main() -> int:
@@ -2999,6 +3578,16 @@ def main() -> int:
         captured.pop("flash_attention_prefill"),
         decode["gemma-7b"]["launches"]["flash_attention"]))
     print("decode: " + json.dumps(decode))
+    torch.cuda.empty_cache()
+    moe, fwd_keys, bwd_keys = moe_path(args, captured)
+    records["flash_attention"]["moe"] = fwd_keys
+    records["flash_attention_bwd"]["moe"] = bwd_keys
+    for k in ("flash_attention", "flash_attention_bwd"):
+        records[k]["moe_launches"] = {
+            f"{arch} {what}": moe[arch][what]["launches"][k]
+            for arch in MOE_WIDTHS for what in ("train", "decode")
+            if moe[arch][what]["launches"][k]}
+    print("moe: " + json.dumps(moe))
     print(f"total {time.perf_counter() - t_start:.0f} s")
     records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
                                           own_launches)

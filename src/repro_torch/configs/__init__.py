@@ -1,10 +1,11 @@
 """Architecture configs of the zoo (``--arch <id>``), as far as ported.
 
 The registry keeps the reference's ids and aliases.  The dense attention
-archs (gemma-7b, codeqwen1.5-7b, phi3-mini-3.8b, mistral-nemo-12b) and
-the attention-free mamba2-130m have their configs here; an arch whose
-blocks are not ported yet raises
-``NotImplementedError`` naming the ROADMAP item that brings them.
+archs (gemma-7b, codeqwen1.5-7b, phi3-mini-3.8b, mistral-nemo-12b), the
+MoE archs (granite-moe-1b-a400m; deepseek-v2-lite-16b, MLA and shared
+experts) and the attention-free mamba2-130m have their configs here; an
+arch whose blocks are not ported yet raises ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -33,9 +34,7 @@ _ALIASES.update({
 
 # arch -> the ROADMAP item (Queue 1, item 11) that ports its blocks
 _NOT_PORTED = {
-    "granite_moe_1b_a400m": "11.4 (MoE)",
-    "deepseek_v2_lite_16b": "11.4 (MLA and MoE)",
-    "recurrentgemma_2b": "11.4 (RG-LRU and local attention)",
+    "recurrentgemma_2b": "11.4b (RG-LRU and local attention)",
     "whisper_medium": "11.5 (the whisper audio frontend and encoder)",
     "pixtral_12b": "11.5 (the pixtral vision frontend)",
 }

@@ -70,7 +70,11 @@ def model_params_from_arrays(tree: dict, cfg: ModelConfig, device=None
     0; copy r of block j is the port's layer r * len(kinds) + j of that
     segment.  The tied embedding table doubles as the head; an untied
     config brings ``tree["lm_head"]``.  An ATTN block carries
-    ``norm_mix``, ``attn``, ``norm_mlp`` and ``mlp``; an SSM block
+    ``norm_mix``, ``attn``, ``norm_mlp`` and ``mlp`` -- or, in a MoE
+    segment, ``moe`` (``router``, the expert stacks ``w_gate``, ``w_up``,
+    ``w_down`` of (E, d, f) / (E, f, d), and ``shared`` where the config
+    has shared experts); an MLA block's ``attn`` holds ``w_dkv``,
+    ``w_kpe``, ``w_uk``, ``w_uv``, ``wq`` and ``wo``; an SSM block
     ``norm_mix`` and ``ssm`` (``w_in``, ``conv/{w, b}``, ``a_log``,
     ``dt_bias``, ``d_skip``, ``norm_scale``, ``w_out``) and no MLP.
     Leaves go through float32 and round to each parameter's dtype.
@@ -91,11 +95,15 @@ def model_arrays(model: Transformer, values: dict | None = None) -> dict:
 def cache_from_arrays(tree: list, cfg: ModelConfig, device=None) -> list:
     """The reference's ``init_cache`` pytree, as numpy arrays (filled or
     not), -> the port's cache on ``device`` (``cuda`` unless given): the
-    same layout (``models.init_cache``), every leaf rounded to its
-    dtype.  Batch and Smax are read from the arrays."""
+    same layout (``models.init_cache``: K/V, MLA's latent ckv/kpe, SSM
+    states), every leaf rounded to its dtype.  Batch and Smax are read
+    from the arrays."""
     blocks = [b for seg in tree for b in seg.values()]
     batch = next(iter(blocks[0].values())).shape[1]
-    smax = next((b["k"].shape[3] for b in blocks if "k" in b), 0)
+    # Smax: axis 3 of K (R, B, Hkv, Smax, hd), axis 2 of MLA's latent ckv
+    # (R, B, Smax, kv_lora); an SSM state has none
+    smax = next((b["k"].shape[3] if "k" in b else b["ckv"].shape[2]
+                 for b in blocks if "k" in b or "ckv" in b), 0)
     cache = init_cache(cfg, batch, smax, device)
     for seg, src in zip(cache, _tensors(tree), strict=True):
         for name, leaves in seg.items():

@@ -134,9 +134,12 @@ def plan(dtype: torch.dtype, dh: int, Sq: int, *, strides=(),
 
 def _check(q, k, v, causal):
     """The shapes and dtypes both wrappers take; returns (B, H, Hkv, Sq,
-    Sk, dh)."""
-    _need(q.dim() == 4 and k.dim() == 4 and v.shape == k.shape,
-          "q must be (B, H, Sq, dh) and k, v (B, Hkv, Sk, dh)")
+    Sk, dh, dv).  v may be narrower than q and k (dv <= dh: MLA's
+    values), as the reference's ``flash_attention_xla`` takes it."""
+    _need(q.dim() == 4 and k.dim() == 4 and v.dim() == 4
+          and v.shape[:3] == k.shape[:3] and 0 < v.shape[3] <= k.shape[3],
+          "q must be (B, H, Sq, dh), k (B, Hkv, Sk, dh) and v (B, Hkv, "
+          "Sk, dv) with dv <= dh")
     B, H, Sq, dh = q.shape
     _, Hkv, Sk, _ = k.shape
     _need(k.shape[0] == B and k.shape[3] == dh,
@@ -149,24 +152,37 @@ def _check(q, k, v, causal):
           f"causal attention needs Sq == Sk (got {Sq}, {Sk}): the TPU "
           f"kernel and the reference's plain version align the mask "
           f"differently otherwise")
-    return B, H, Hkv, Sq, Sk, dh
+    return B, H, Hkv, Sq, Sk, dh, v.shape[3]
+
+
+def _widen(t: torch.Tensor, dh: int) -> torch.Tensor:
+    """t (..., dv) zero-padded to (..., dh): a narrow v (and, in the
+    gradient, o and dout) as the kernels' one head width.  The padded
+    columns of O are P @ 0 = 0, so lse, delta, dQ and dK are those of
+    the narrow call, and its O and dV are the first dv columns."""
+    return t if t.shape[-1] == dh else torch.nn.functional.pad(
+        t, (0, dh - t.shape[-1]))
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, scale: float | None = None,
                          return_lse: bool = False):
-    """Attention of q (B, H, Sq, dh) against k, v (B, Hkv, Sk, dh), H a
-    multiple of Hkv (query head h reads kv head h // (H // Hkv)); f32 or
-    bf16, all alike; returns (B, H, Sq, dh) in q's dtype and, with
-    ``return_lse``, each row's log-sum-exp of its scaled scores (B, H, Sq)
-    float32 (the output's bits are the same either way).
+    """Attention of q (B, H, Sq, dh) against k (B, Hkv, Sk, dh) and v
+    (B, Hkv, Sk, dv), dv <= dh, H a multiple of Hkv (query head h reads
+    kv head h // (H // Hkv)); f32 or bf16, all alike; returns (B, H, Sq,
+    dv) in q's dtype and, with ``return_lse``, each row's log-sum-exp of
+    its scaled scores (B, H, Sq) float32 (the output's bits are the same
+    either way).
 
     Any Sq and Sk (nothing is padded).  ``causal`` masks keys past the
     query's own position, aligned top-left as the TPU kernel aligns it;
     the reference's plain version aligns bottom-right, and the two agree
-    only at Sq == Sk, so causal attention with Sq != Sk is refused.
+    only at Sq == Sk, so causal attention with Sq != Sk is refused.  The
+    kernel computes at one head width: a narrower v is zero-padded to dh
+    for the launch (``_widen``) and the output is the view of its first
+    dv columns.
     """
-    B, H, Hkv, Sq, Sk, dh = _check(q, k, v, causal)
+    B, H, Hkv, Sq, Sk, dh, dv = _check(q, k, v, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
     if not q.is_cuda:
@@ -174,6 +190,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  return_lse=return_lse)
     _need(k.device == q.device and v.device == q.device,
           "q, k, v must be on one CUDA device")
+    v = _widen(v, dh)
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -183,6 +200,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = plan(q.dtype, dh, Sq, strides=strides,
              aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v, o)))
     if o.numel() == 0:
+        o = o[..., :dv]
         return (o, lse) if return_lse else o
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if return_lse else None)
@@ -199,6 +217,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"CUDA error {err}")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_by_design[p.design] += 1
+    o = o[..., :dv]
     return (o, lse) if return_lse else o
 
 
@@ -274,17 +293,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                         torch.Tensor]:
     """The gradient of ``flash_attention_cuda``: (dq, dk, dv) of q, k, v
     given its output o, its ``lse`` (B, H, Sq) float32 and the output's
-    gradient ``dout``, all in q's dtype (o and dout shaped like q).  The
-    outputs are new contiguous tensors in the inputs' dtype.
+    gradient ``dout``, all in q's dtype (o and dout shaped (B, H, Sq,
+    dv), as the forward's output).  The outputs are new contiguous
+    tensors in the inputs' dtype.
 
     q, k, v, o and dout are read through their strides; an input whose
     head dim is not unit-stride (which autograd may hand over as
-    ``dout``) is copied once first.  No atomics: two launches are bitwise
-    alike.
+    ``dout``) is copied once first.  A v narrower than q and k is
+    zero-padded to dh with o and dout (``_widen``: the padded columns
+    add nothing to delta or dP) and dV is the first dv columns of the
+    kernel's.  No atomics: two launches are bitwise alike.
     """
-    B, H, Hkv, Sq, Sk, dh = _check(q, k, v, causal)
-    _need(o.shape == q.shape and dout.shape == q.shape,
-          f"o and dout must be shaped like q {tuple(q.shape)}")
+    B, H, Hkv, Sq, Sk, dh, dv_dim = _check(q, k, v, causal)
+    _need(o.shape == dout.shape == (B, H, Sq, dv_dim),
+          f"o and dout must be shaped ({B}, {H}, {Sq}, {dv_dim})")
     _need(o.dtype == dout.dtype == q.dtype,
           f"o and dout must be {q.dtype}, got {o.dtype}, {dout.dtype}")
     _need(lse.shape == (B, H, Sq) and lse.dtype == torch.float32,
@@ -296,6 +318,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                                            causal=causal, scale=scale)
     _need(all(t.device == q.device for t in (k, v, o, lse, dout)),
           "every input must be on one CUDA device")
+    v, o, dout = (_widen(t, dh) for t in (v, o, dout))
     q, k, v, o, dout = (t if t.stride(3) == 1 else t.contiguous()
                         for t in (q, k, v, o, dout))
     lse = lse.contiguous()
@@ -306,7 +329,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     p = bwd_plan(q.dtype, dh, Sq, Sk, strides=strides, aligned=all(
         t.data_ptr() % 16 == 0 for t in (q, k, v, o, dout, dq, dk, dv)))
     if B * H * Sq == 0:        # no query: nothing reaches k or v
-        return dq, dk.zero_(), dv.zero_()
+        return dq, dk.zero_(), dv[..., :dv_dim].zero_().contiguous()
     delta = torch.empty((B, H, p.workspace_rows), dtype=torch.float32,
                         device=q.device)
     ptrs = tuple(t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq,
@@ -325,7 +348,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                            f" CUDA error {err}")
     flash_attention_bwd_cuda.launches += 1
     flash_attention_bwd_cuda.launches_by_design[p.design] += 1
-    return dq, dk, dv
+    return dq, dk, dv if dv_dim == dh else dv[..., :dv_dim].contiguous()
 
 
 def reset_launches() -> None:

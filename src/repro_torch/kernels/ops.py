@@ -206,10 +206,11 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None):
-    """(B, H, Sq, dh) x (B, Hkv, Sk, dh) -> (B, H, Sq, dh): the flash
-    kernel on CUDA tensors, its plain version on CPU tensors.  The
-    reference pads Sq and Sk to its 128-row tiles here; the kernel takes
-    any length, so nothing is padded.  With a gradient required it runs
+    """q (B, H, Sq, dh) against k (B, Hkv, Sk, dh) and v (B, Hkv, Sk,
+    dv), dv <= dh -> (B, H, Sq, dv): the flash kernel on CUDA tensors
+    (v narrower than dh zero-padded for it), its plain version on CPU
+    tensors.  The reference pads Sq and Sk to its 128-row tiles here; the
+    kernel takes any length, so nothing is padded.  With a gradient required it runs
     as an autograd function whose backward is the gradient kernel (its
     plain version on the CPU)."""
     if _needs_grad(q, k, v):

@@ -172,10 +172,11 @@ def attention_ref(q, k, v, *, causal: bool = True, scale: float | None = None,
                   return_lse: bool = False):
     """Exact softmax attention (plain version of ``flash_attention_cuda``).
 
-    q (B, H, Sq, dh), k/v (B, Hkv, Sk, dh); query head h reads kv head
-    h // (H // Hkv).  Scores (q * scale) . k in float32, the causal mask
-    rows >= cols (top-left, as the kernel has it), float32 weights and
-    sums; the output in q's dtype.  With ``return_lse`` also each row's
+    q (B, H, Sq, dh), k (B, Hkv, Sk, dh), v (B, Hkv, Sk, dv), dv <= dh;
+    query head h reads kv head h // (H // Hkv).  Scores (q * scale) . k
+    in float32, the causal mask rows >= cols (top-left, as the kernel has
+    it), float32 weights and sums; the output (B, H, Sq, dv) in q's
+    dtype.  With ``return_lse`` also each row's
     log-sum-exp of its scores (B, H, Sq) float32, the reference's
     ``m + log(l)`` (``models/flash_xla.py`` ``_fwd``).
     """
@@ -198,7 +199,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, causal: bool = True,
     (dP - delta) rounded to k's dtype; dq, dk and dv summed in float32,
     the scale on dq and inside q for dk, dk and dv summed over each kv
     head's group of query heads; the causal mask top-left.  Returns (dq,
-    dk, dv) in the inputs' dtypes.
+    dk, dv) in the inputs' dtypes; v, o and dout may be narrower than q
+    and k (dv <= dh).
     """
     B, H, _, dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -211,7 +213,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, dout, *, causal: bool = True,
     p = torch.exp(s - lse[..., None]).to(v.dtype).float()
     dp = torch.matmul(do, vq.transpose(-1, -2))
     ds = (p * (dp - delta)).to(k.dtype).float()
-    per_group = lambda t: t.reshape(B, Hkv, H // Hkv, Sk, dh).sum(dim=2)
+    per_group = lambda t: t.reshape(B, Hkv, H // Hkv, Sk,
+                                    t.shape[-1]).sum(dim=2)
     dv = per_group(torch.matmul(p.transpose(-1, -2), do))
     dk = per_group(torch.matmul(ds.transpose(-1, -2), qs))
     dq = torch.matmul(ds, kq) * scale

@@ -1,7 +1,7 @@
 """End-to-end training driver (the reference's ``repro.launch.train``):
 token pipeline -> train step -> AdamW -> checkpoint/restart, on one
-device, for every ported arch (the dense family and mamba2).  Examples
-(CPU, reduced configs):
+device, for every ported arch (the dense and MoE families and mamba2).
+Examples (CPU, reduced configs):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch mamba2-130m --reduced --steps 30 --fail-at 15
@@ -13,9 +13,9 @@ parameters in the reference's pytree layout (``models.param_tree``), so a
 checkpoint has the reference's leaf paths.  Each step copies the state's
 parameters into the model, takes the loss and its gradient (on the card
 the flash-attention or SSD forward and gradient kernels), and applies
-AdamW.  ``--layers`` cuts a single-segment config to its first N blocks
-at its published width (the reference trains the config as it is; a
-model too deep for one card's memory trains cut).
+AdamW.  ``--layers`` cuts a config to its first N blocks at its
+published width, across its segments (the reference trains the config
+as it is; a model too deep for one card's memory trains cut).
 The run is deterministic: PyTorch's deterministic algorithms are on for
 its length (the embedding gradient's scatter-add is otherwise a float
 atomic on the card), so a replay after an injected failure repeats the
@@ -99,20 +99,27 @@ def make_step(model, opt_cfg: optim.AdamWConfig):
 
 
 def cut_depth(cfg, layers: int | None):
-    """``cfg`` with its one segment cut to ``layers`` blocks (``None``:
-    as it is)."""
+    """``cfg`` cut to its first ``layers`` blocks in order (``None``: as
+    it is): the segments before the cut whole, the one it falls in
+    shortened, the ones after it dropped (deepseek-v2-lite at 3 blocks
+    is its dense block and 2 of its MoE blocks).  The cut must fall on a
+    whole unit of the segment it shortens."""
     if layers is None:
         return cfg
-    if len(cfg.segments) != 1 or not 0 < layers <= cfg.n_layers:
-        raise ValueError(f"{cfg.name}: --layers {layers} needs one segment "
-                         f"of at least that many blocks")
-    (seg,) = cfg.segments
-    unit = len(seg.kinds)
-    if layers % unit:
-        raise ValueError(f"{cfg.name}: --layers must be a multiple of its "
-                         f"unit of {unit} blocks")
-    return dataclasses.replace(cfg, segments=(dataclasses.replace(
-        seg, repeat=layers // unit),))
+    if not 0 < layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name}: --layers {layers} must be in 1 .. "
+                         f"{cfg.n_layers}")
+    segments, left = [], layers
+    for seg in cfg.segments:
+        unit = len(seg.kinds)
+        take = min(left, unit * seg.repeat)
+        if take % unit:
+            raise ValueError(f"{cfg.name}: --layers {layers} cuts a unit of "
+                             f"{unit} blocks")
+        if take:
+            segments.append(dataclasses.replace(seg, repeat=take // unit))
+        left -= take
+    return dataclasses.replace(cfg, segments=tuple(segments))
 
 
 def main(argv=None) -> LoopStats:

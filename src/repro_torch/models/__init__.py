@@ -1,6 +1,7 @@
 """The model zoo of the retrieval service's embedder, as far as ported:
-the dense attention family (config, layers, attention, transformer) and
-the Mamba-2 family; both train (``loss_fn``) and serve through a cache
+the dense attention family (config, layers, attention, transformer), the
+Mixture-of-Experts family (``moe``; MLA in ``attention``) and the
+Mamba-2 family; all train (``loss_fn``) and serve through a cache
 (``init_cache``, ``prefill``, ``decode_step``)."""
 from repro_torch.models.config import (BlockKind, MLAConfig, ModelConfig,
                                        MoEConfig, RGLRUConfig, SSMConfig,

@@ -1,4 +1,5 @@
-"""GQA/MQA attention, over the full sequence or through a KV cache.
+"""GQA/MQA attention and DeepSeek's multi-head latent attention (MLA),
+over the full sequence or through a cache.
 
 Score paths, chosen by shape as the reference chooses them:
   * the flash kernel (``kernels/ops.flash_attention`` through
@@ -19,6 +20,13 @@ extra term (``_decode_attn_delta``).  The cache products keep K/V in
 their storage dtype and sum in float32 (``_f32_product``).  The window
 argument serves the sliding-window blocks, which come with ROADMAP
 Queue 1 item 11.4b.
+
+An MLA block caches the latent ``{"ckv": (B, Smax, kv_lora), "kpe": (B,
+Smax, rope_dim)}`` instead (576 values a position at deepseek-v2-lite's
+width, against 2 * H * hd): ``mla_attention`` expands it to per-head K
+(nope + rope wide) and V (v_dim wide) for a prompt, and a one-token
+decode scores and reads values in the latent space itself
+(``_mla_absorbed_decode``).
 """
 from __future__ import annotations
 
@@ -223,3 +231,118 @@ def _write(cache, k, v, pos) -> None:
     place (``index_copy_``: no host read of a tensor position)."""
     cache["k"].index_copy_(2, pos, k.to(cache["k"].dtype))
     cache["v"].index_copy_(2, pos, v.to(cache["v"].dtype))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """The reference's ``init_mla``: w_dkv (d, kv_lora), w_kpe (d,
+    rope_dim), w_uk (kv_lora, H * nope_dim), w_uv (kv_lora, H * v_dim),
+    wq (d, H * (nope_dim + rope_dim)), wo (H * v_dim, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        m, d, H, dt = cfg.mla, cfg.d_model, cfg.n_heads, cfg.pdtype
+        self.w_dkv = param(d, m.kv_lora, dtype=dt, device=device)
+        self.w_kpe = param(d, m.rope_dim, dtype=dt, device=device)
+        self.w_uk = param(m.kv_lora, H * m.nope_dim, dtype=dt, device=device)
+        self.w_uv = param(m.kv_lora, H * m.v_dim, dtype=dt, device=device)
+        self.wq = param(d, H * (m.nope_dim + m.rope_dim), dtype=dt,
+                        device=device)
+        self.wo = param(H * m.v_dim, d, dtype=dt, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        """normal / sqrt(fan_in), fan_in each weight's first dimension."""
+        for w in (self.w_dkv, self.w_kpe, self.w_uk, self.w_uv, self.wq,
+                  self.wo):
+            he_init_(w, generator)
+
+    def forward(self, x, *, pos0=0, cache=None):
+        return mla_attention(self, self.cfg, x, pos0=pos0, cache=cache)
+
+
+def mla_attention(p, cfg: ModelConfig, x, *, pos0=0, cache=None):
+    """x: (B, S, d) -> (B, S, d), causal, x's rows at positions pos0 ..
+    pos0 + S - 1 (pos0 an int or a 0-d integer tensor).
+
+    cache: None (the full sequence from position 0), or a block's latent
+    ``{"ckv", "kpe"}``, written in place at positions [pos0, pos0 + S).
+    ``kpe`` is roped as one head shared by all, ``q_pe`` per head; the
+    softmax scale is 1 / sqrt(nope_dim + rope_dim), q's width.  One
+    token attends in the latent space (``_mla_absorbed_decode``); a
+    prompt at pos0 = 0 expands only its own rows and runs the flash
+    kernel (v narrower than q and k); a prompt at pos0 > 0 expands the
+    whole cache and reads it through the offset paths."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qd = m.nope_dim + m.rope_dim
+    pos = pos0 + torch.arange(S, device=x.device)
+    ckv = x @ p.w_dkv                                       # (B, S, lora)
+    kpe = apply_rope((x @ p.w_kpe)[:, None], pos, cfg.rope_theta)[:, 0]
+    q = (x @ p.wq).view(B, S, H, qd).transpose(1, 2)
+    q_nope, q_pe = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    q_pe = apply_rope(q_pe, pos, cfg.rope_theta)
+    if cache is not None and S == 1:
+        out = _mla_absorbed_decode(p, cfg, q_nope, q_pe, cache["ckv"],
+                                   cache["kpe"], ckv, kpe, pos0)
+        _write_latent(cache, ckv, kpe, pos)
+        return out @ p.wo
+    if cache is not None:
+        _write_latent(cache, ckv, kpe, pos)
+        if not _offset_is_zero(pos0):
+            ckv, kpe = cache["ckv"], cache["kpe"]
+    Sk = ckv.shape[1]
+    k_nope = (ckv @ p.w_uk).view(B, Sk, H, m.nope_dim)
+    v = (ckv @ p.w_uv).view(B, Sk, H, m.v_dim).transpose(1, 2)
+    k = torch.cat([k_nope, kpe[:, :, None].expand(B, Sk, H, m.rope_dim)],
+                  dim=-1).transpose(1, 2)                   # (B, H, Sk, qd)
+    out = sdpa(torch.cat([q_nope, q_pe], dim=-1), k, v, causal=True,
+               q_offset=pos0 if cache is not None else 0)
+    return out.transpose(1, 2).reshape(B, S, H * m.v_dim) @ p.wo
+
+
+def _write_latent(cache, ckv, kpe, pos) -> None:
+    """ckv (B, S, kv_lora), kpe (B, S, rope_dim) into the latent cache at
+    positions pos (S,), in place (``index_copy_``)."""
+    cache["ckv"].index_copy_(1, pos, ckv.to(cache["ckv"].dtype))
+    cache["kpe"].index_copy_(1, pos, kpe.to(cache["kpe"].dtype))
+
+
+def _mla_absorbed_decode(p, cfg: ModelConfig, q_nope, q_pe, ckv_cache,
+                         kpe_cache, ckv_new, kpe_new, pos0):
+    """One-token MLA decode with W_uk and W_uv absorbed into the query and
+    the output: scores and value reads in the kv_lora latent space over
+    the cache rows below pos0 (the cache is never expanded to per-head
+    K/V), the new token an explicit extra softmax term.  The cache
+    products read the latent cache in its own dtype and sum in float32.
+    q_nope (B, H, 1, nope_dim), q_pe (B, H, 1, rope_dim); returns (B, 1,
+    H * v_dim) in the cache's dtype."""
+    m = cfg.mla
+    B, H = q_nope.shape[0], cfg.n_heads
+    scale = 1.0 / math.sqrt(m.nope_dim + m.rope_dim)
+    cdt = ckv_cache.dtype
+    w_uk = p.w_uk.view(m.kv_lora, H, m.nope_dim).float()
+    q_lat = torch.einsum("bhn,lhn->bhl", q_nope[:, :, 0].float(),
+                         w_uk).to(cdt)                       # (B, H, lora)
+    q_pe_c = q_pe[:, :, 0].to(cdt)                           # (B, H, rope)
+    s = (_f32_product(q_lat, ckv_cache.transpose(1, 2))
+         + _f32_product(q_pe_c, kpe_cache.transpose(1, 2))) * scale
+    cols = torch.arange(ckv_cache.shape[1], device=q_nope.device)
+    s = s.masked_fill(~(cols < pos0), _MASKED)               # (B, H, Smax)
+    s_n = (torch.sum(q_lat.float() * ckv_new.to(cdt).float(), dim=-1,
+                     keepdim=True)
+           + torch.sum(q_pe_c.float() * kpe_new.to(cdt).float(), dim=-1,
+                       keepdim=True)) * scale                # (B, H, 1)
+    mx = torch.maximum(s.amax(-1, keepdim=True), s_n)
+    w_c = torch.exp(s - mx)
+    w_n = torch.exp(s_n - mx)
+    denom = w_c.sum(-1, keepdim=True) + w_n
+    o_lat = (_f32_product(w_c.to(cdt), ckv_cache)
+             + w_n * ckv_new.float()) / denom                # (B, H, lora)
+    w_uv = p.w_uv.view(m.kv_lora, H, m.v_dim).float()
+    o = torch.einsum("bhl,lhv->bhv", o_lat, w_uv)
+    return o.reshape(B, 1, H * m.v_dim).to(cdt)

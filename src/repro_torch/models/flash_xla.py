@@ -16,6 +16,8 @@ from repro_torch.kernels import ops
 
 
 def flash_attention_xla(q, k, v, causal: bool = True, scale=None):
-    """q (B, H, Sq, dh) against k, v (B, Hkv, Sk, dh) -> (B, H, Sq, dh),
-    differentiable in q, k and v."""
+    """q (B, H, Sq, dh) against k (B, Hkv, Sk, dh) and v (B, Hkv, Sk,
+    dv) -> (B, H, Sq, dv), differentiable in q, k and v.  v's width may
+    be below q's (MLA: q/k 192, v 128), as the reference's takes it; the
+    default scale is 1 / sqrt(dh), q's width."""
     return ops.flash_attention(q, k, v, causal=causal, scale=scale)

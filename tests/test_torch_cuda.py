@@ -394,7 +394,7 @@ def _attn_close(got, want):
 @pytest.mark.parametrize("S", [1, 100, 128, 300])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [32, 48, 64, 96, 128, 256])
+@pytest.mark.parametrize("dh", [32, 48, 64, 96, 128, 192, 256])
 def test_flash_kernel_matches_plain_version(dh, dtype, causal, S):
     dev = _cuda()
     q, k, v = _attn(dh + S, 2, 4, 2, S, S, dh, dtype, dev)
@@ -496,9 +496,9 @@ def test_reduced_model_on_the_card_answers_as_on_the_cpu():
                        device=dev)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (3, 100)))
-    want = forward(cpu, tokens)
+    want, _ = forward(cpu, tokens)
     before = kfa.flash_attention_cuda.launches
-    got = forward(card, tokens.to(dev))
+    got, _ = forward(card, tokens.to(dev))
     torch.cuda.synchronize()
     assert kfa.flash_attention_cuda.launches == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
@@ -947,7 +947,7 @@ def _bwd_design(dtype):
 @pytest.mark.parametrize("S", [1, 100, 300])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [32, 64, 96, 128, 256])
+@pytest.mark.parametrize("dh", [32, 64, 96, 128, 192, 256])
 def test_flash_bwd_kernel_matches_plain_version(dh, dtype, causal, S):
     dev = _cuda()
     a = _bwd_case(dh + S, 2, 4, 2, S, S, dh, dtype, dev, causal)
@@ -999,6 +999,42 @@ def test_flash_bwd_kernel_launches_are_bitwise_equal(dtype):
     for g1, g2 in zip(one, two):
         assert torch.equal(g1, g2)
     _bwd_close(one, ref.flash_attention_bwd_ref(*a))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_narrow_v_through_the_padding_wrappers(dtype):
+    """MLA's widths, q/k 192 and v 128 (deepseek-v2-lite), causal: the
+    forward wrapper zero-pads v for the kernel and returns O's first 128
+    columns, the gradient wrapper pads v, o and dout and returns dV's;
+    both against their plain versions (which take v as it is), one
+    launch each, bf16 on the tensor-core designs; two gradient launches
+    bitwise alike."""
+    dev = _cuda()
+    q, k, _ = _attn(192, 2, 4, 4, 300, 300, 192, dtype, dev)
+    v = _attn(128, 2, 4, 4, 300, 300, 128, dtype, dev)[2]
+    design = _bwd_design(dtype)
+    before = (dict(kfa.flash_attention_cuda.launches_by_design),
+              dict(kfa.flash_attention_bwd_cuda.launches_by_design))
+    o, lse = kfa.flash_attention_cuda(q, k, v, return_lse=True)
+    want_o, want_lse = ref.attention_ref(q, k, v, return_lse=True)
+    assert o.shape == (2, 4, 300, 128)
+    _attn_close(o, want_o)
+    np.testing.assert_allclose(lse.cpu(), want_lse.cpu(), rtol=1e-4,
+                               atol=1e-4)
+    dout = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        o.shape).astype(np.float32)).to(dev, dtype)
+    a = (q, k, v, o, lse, dout)
+    got = kfa.flash_attention_bwd_cuda(*a)
+    again = kfa.flash_attention_bwd_cuda(*a)
+    torch.cuda.synchronize()
+    assert got[2].shape == v.shape and got[2].is_contiguous()
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    _bwd_close(got, ref.flash_attention_bwd_ref(*a))
+    after = (kfa.flash_attention_cuda.launches_by_design,
+             kfa.flash_attention_bwd_cuda.launches_by_design)
+    assert after[0][design] == before[0][design] + 1
+    assert after[1][design] == before[1][design] + 2
 
 
 @pytest.mark.gpu
@@ -1085,6 +1121,20 @@ def test_reduced_dense_training_step_on_the_card_equals_the_cpu():
     gradient kernels) against the CPU (their plain versions) at the CPU
     tests' tolerances (loss rtol 1e-5, gradients rtol = atol = 1e-4),
     then one AdamW step's parameters; two card steps bitwise alike."""
+    _training_step_on_the_card_equals_the_cpu("gemma-7b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b"])
+def test_reduced_moe_training_step_on_the_card_equals_the_cpu(arch):
+    """The same for the MoE family: the router, the dispatch and combine,
+    the expert products and (deepseek) MLA's flash launches with v
+    narrower than q and k, on the card against the CPU."""
+    _training_step_on_the_card_equals_the_cpu(arch)
+
+
+def _training_step_on_the_card_equals_the_cpu(arch):
     dev = _cuda()
     from repro_torch import optim
     from repro_torch.tree import leaves_with_paths
@@ -1094,7 +1144,7 @@ def test_reduced_dense_training_step_on_the_card_equals_the_cpu():
     from repro_torch.models import (Transformer, init_params,
                                     load_param_tree, param_tree,
                                     value_and_grad)
-    cfg = get_config("gemma-7b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     cpu = init_params(cfg, generator=torch.Generator().manual_seed(0),
                       device="cpu")
     card = Transformer(cfg, dev)
@@ -1330,9 +1380,9 @@ def test_reduced_mamba2_on_the_card_answers_as_on_the_cpu():
                        device=dev)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (3, 300)))
-    want = forward(cpu, tokens)
+    want, _ = forward(cpu, tokens)
     before = kssd.ssd_scan_cuda.launches
-    got = forward(card, tokens.to(dev))
+    got, _ = forward(card, tokens.to(dev))
     torch.cuda.synchronize()
     assert kssd.ssd_scan_cuda.launches == before + cfg.n_layers
     np.testing.assert_allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
@@ -1623,7 +1673,8 @@ def test_simulator_hashes_launch_the_kernel():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["gemma-7b", "mistral-nemo-12b",
-                                  "mamba2-130m"])
+                                  "mamba2-130m", "granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b"])
 def test_reduced_decode_on_the_card_equals_the_cpu(arch):
     """Reduced configs (float32): a prompt of 31 tokens prefilled into a
     cache of 36 positions and four decode steps on the card (a dense
@@ -1714,3 +1765,86 @@ def test_prefill_launches_the_flash_kernel_once_a_dense_block():
     _blocks(model, tokens[:, 33:40], pos0=33, cache=cache)
     torch.cuda.synchronize()
     assert kfa.flash_attention_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the MoE MLP
+# ---------------------------------------------------------------------------
+
+def _moe_case(arch, dtype, dev, capacity_factor=1.0, T=(2, 48)):
+    """A reduced MoE layer of ``arch`` at ``capacity_factor`` (1.0 drops
+    tokens), its weights and input drawn on the CPU, on the CPU and on
+    ``dev``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch, reduced=True)
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype,
+                              moe=dataclasses.replace(
+                                  cfg.moe, capacity_factor=capacity_factor))
+    gen = torch.Generator().manual_seed(0)
+    cpu = moe.MoE(cfg, device="cpu")
+    for mod in cpu.modules():           # the shared MLP resets itself
+        if hasattr(mod, "reset_parameters"):
+            mod.reset_parameters(gen)
+    card = moe.MoE(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((*T, cfg.d_model), generator=gen).to(cfg.cdtype)
+    return cfg, cpu, card, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_mlp_on_the_card_equals_the_cpu(arch):
+    """float32, with tokens dropped (capacity 1): the same experts, slots
+    and drops (the router in IEEE float32 on both), the output and the
+    balance loss within rtol = atol = 1e-4, and the gradients of x and
+    every parameter."""
+    dev = _cuda()
+    from repro_torch.models import moe
+    cfg, cpu, card, x = _moe_case(arch, "float32", dev)
+    xs = (x.clone().requires_grad_(), x.to(dev).requires_grad_())
+    outs = []
+    for m, xx in zip((cpu, card), xs):
+        r = moe.route(m.router, cfg, xx.detach().reshape(-1, cfg.d_model))
+        for t in m.parameters():
+            t.requires_grad_(True)
+        y, aux = moe.moe_mlp(m, cfg, xx)
+        dy = torch.linspace(-1, 1, y.numel()).view(y.shape).to(y.device)
+        grads = torch.autograd.grad((y * dy).sum() + aux,
+                                    [xx, *m.parameters()])
+        outs.append((r, y.detach(), aux.detach(), grads))
+    (rc, yc, ac, gc), (rg, yg, ag, gg) = outs
+    assert int((~rc.keep).sum()) > 0
+    for f in ("top_e", "slot", "keep"):
+        assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
+    np.testing.assert_allclose(yg.cpu(), yc, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(ag), float(ac), rtol=1e-4, atol=1e-4)
+    for a, b in zip(gg, gc):
+        np.testing.assert_allclose(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_moe_gradient_launches_are_bitwise_alike_under_deterministic_mode():
+    """Reduced deepseek-v2-lite's MoE layer in bf16 (shared experts, tokens
+    dropped) under PyTorch's deterministic algorithms: no operation of
+    the dispatch, the combine or their backward raises, and two forward
+    and backward passes give the same bits."""
+    dev = _cuda()
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    cfg, _, card, x = _moe_case("deepseek-v2-lite-16b", "bfloat16", dev,
+                                T=(4, 256))
+    for t in card.parameters():
+        t.requires_grad_(True)
+    x = x.to(dev).requires_grad_()
+    runs = []
+    with train.deterministic():
+        for _ in range(2):
+            y, aux = moe.moe_mlp(card, cfg, x)
+            runs.append(torch.autograd.grad(y.float().square().sum() + aux,
+                                            [x, *card.parameters()]))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -219,8 +219,8 @@ def test_mamba2_forward_logits_match_reference(reduced, use_kernel):
     tokens = _tokens(7, 2, 100, jcfg.vocab)
     want, _ = jforward(jp, jcfg, jnp.asarray(tokens), use_kernel=use_kernel,
                        remat=False)
-    got = forward(model, _t(tokens).long())
-    assert got.shape == (2, 100, jcfg.vocab_padded)
+    got, aux = forward(model, _t(tokens).long())
+    assert got.shape == (2, 100, jcfg.vocab_padded) and float(aux) == 0.0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
 
 
@@ -275,7 +275,7 @@ def test_ssm_init_draws_the_reference_distributions():
     for w, fan_in in ((ssm.w_in, cfg.d_model), (ssm.conv.w, 4),
                       (ssm.w_out, ssm.w_out.shape[0])):
         assert abs(float(w.float().std()) * fan_in ** 0.5 - 1.0) < 0.15
-    out = forward(model, torch.zeros((1, 8), dtype=torch.long))
+    out, _ = forward(model, torch.zeros((1, 8), dtype=torch.long))
     assert torch.isfinite(out[..., :cfg.vocab]).all()
 
 

@@ -1,9 +1,11 @@
 """The port's training path against the JAX reference, on the CPU.
 
-Reduced mamba2 and, for the dense family, reduced gemma-7b (GeGLU, tied
+Reduced mamba2; for the dense family, reduced gemma-7b (GeGLU, tied
 head, softcap) and reduced mistral-nemo-12b (GQA 4/2, SwiGLU, untied
-head), each float32 with 2 layers, with the reference's weights carried
-across by ``convert.py``: ``loss_fn`` and every gradient leaf against
+head); for the MoE family, reduced granite-moe-1b-a400m and
+deepseek-v2-lite-16b (MLA, shared experts, two segments); each float32
+with 2 or 3 layers, with the reference's weights carried across by
+``convert.py``: ``loss_fn`` and every gradient leaf against
 ``jax.value_and_grad(repro.models.loss_fn)`` (the reference's plain scan
 or attention differentiated by JAX; the port's plain forward and its
 plain SSD recurrence or flash backward), five optimizer steps' losses
@@ -46,6 +48,9 @@ from test_torch_cuda import one_torch_thread  # noqa: E402,F401
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 ARCH = "mamba2-130m"
 DENSE_ARCHS = ["gemma-7b", "mistral-nemo-12b"]
+# routed experts with GQA and a tied head; MLA, a dense block and then MoE
+# with shared experts, an untied head
+MOE_ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
 
 
 def _carry(arch):
@@ -70,6 +75,12 @@ def dense(request):
     return _carry(request.param)
 
 
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe(request):
+    """A reduced MoE config's reference weights, in both packages."""
+    return _carry(request.param)
+
+
 def _batch(cfg, seed, B=2, S=24):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (B, S + 1))
@@ -91,6 +102,14 @@ def test_dense_loss_and_every_gradient_leaf_match_the_reference(dense):
     """The attention blocks' gradient through the flash backward's plain
     version, the tied head's (gemma) and the untied one's (mistral)."""
     _check_loss_and_grads(dense)
+
+
+def test_moe_loss_and_every_gradient_leaf_match_the_reference(moe):
+    """The loss with 0.01 x the balance loss of every MoE block, and every
+    leaf of its gradient -- the router's (through the top-k weights and
+    the balance loss), each expert stack's, the shared experts' and
+    MLA's -- against ``jax.value_and_grad(repro.models.loss_fn)``."""
+    _check_loss_and_grads(moe)
 
 
 def _check_loss_and_grads(carried):
@@ -125,6 +144,12 @@ def test_dense_parameters_carry_back_to_the_reference_tree(dense):
     _check_carry_back(dense)
 
 
+def test_moe_parameters_carry_back_to_the_reference_tree(moe):
+    """The expert stacks (R, E, d, f), the float32 router and MLA's
+    weights, both segments of deepseek's."""
+    _check_carry_back(moe)
+
+
 def _check_carry_back(carried):
     _, jp, _, model = carried
     got, want = _by_path(convert.model_arrays(model)), _by_path(jp)
@@ -139,6 +164,10 @@ def test_five_optimizer_steps_match_the_reference(carried):
 
 def test_dense_five_optimizer_steps_match_the_reference(dense):
     _check_five_steps(dense)
+
+
+def test_moe_five_optimizer_steps_match_the_reference(moe):
+    _check_five_steps(moe)
 
 
 def _check_five_steps(carried):
@@ -327,3 +356,19 @@ def test_train_cli_survives_an_injected_failure(capsys):
                         "--ckpt-every", "5", "--fail-at", "7"])
     assert stats.restarts == 1 and stats.steps_run == 16
     assert "restarts=1" in capsys.readouterr().out
+
+
+def test_moe_train_cli_survives_an_injected_failure(capsys):
+    """The MoE families train through the CLI: every MoE config passes
+    ``check_trainable``, published and reduced, and reduced
+    deepseek-v2-lite cut across its segments by ``--layers 2`` (its
+    dense block and one MoE block) trains through a failure."""
+    for arch in MOE_ARCHS:
+        for reduced in (False, True):
+            check_trainable(get_config(arch, reduced=reduced))
+    stats = train.main(["--device", "cpu", "--arch", "deepseek-v2-lite-16b",
+                        "--reduced", "--layers", "2", "--steps", "8",
+                        "--batch", "2", "--seq", "16", "--lr", "3e-3",
+                        "--ckpt-every", "3", "--fail-at", "5"])
+    assert stats.restarts == 1 and stats.steps_run == 10
+    assert "arch=deepseek-v2-lite-16b-reduced" in capsys.readouterr().out
