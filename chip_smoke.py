@@ -73,8 +73,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                hash kernel (the planted duplicates removed), then
                mamba2-130m at its published width trained by
                ``launch/train.py``: 8 x 1,024 tokens a step from
-               ``TokenPipeline``, 40 steps, a checkpoint every 10, the
-               example's failure at step 20, and the same run
+               ``TokenPipeline``, 12 steps, a checkpoint every 3, the
+               example's failure half way (step 6), and the same run
                uninterrupted; the two loss trajectories must be bitwise
                alike (PyTorch's deterministic algorithms on) and the
                loss must fall.  Each step launches the SSD kernel twice
@@ -97,8 +97,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                16 heads of 256, d_ff 24,576, vocab 256,000, tied head,
                softcap 30, bf16) cut to 6 of its 28 blocks (memory),
                trained by ``launch/train.py``: 2 x 1,024 tokens a step
-               from ``TokenPipeline``, 16 steps, a checkpoint every 4, a
-               failure at step 8, and the same run uninterrupted; the
+               from ``TokenPipeline``, 8 steps, a checkpoint every 2, a
+               failure at step 4, and the same run uninterrupted; the
                two loss trajectories must be bitwise alike and the loss
                must fall.  Each step launches the flash kernel twice a
                layer (the forward and its rematerialisation, with its
@@ -116,7 +116,7 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                context, (1, 16, 8,192, 256), causal, beside
                ``scaled_dot_product_attention``'s backward and its bound,
                and held against its plain version head by head;
-  decode    -- last, with the allocator's cache emptied first: gemma-7b at
+  decode    -- then, with the allocator's cache emptied first: gemma-7b at
                its published width and depth (28 blocks, bf16) and
                mamba2-130m at its own (24 SSD blocks), weights from
                --seed, ``models.init_cache`` / ``prefill`` /
@@ -135,12 +135,12 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                The flash kernel is held against its plain version and
                timed beside ``scaled_dot_product_attention`` at the
                prefill's inputs (the record's ``prefill_*`` keys);
-  moe       -- last, each model freed before the next: granite-moe-1b-a400m
-               at its published width and depth (24 blocks, d_model
+  moe       -- after it, each model freed before the next:
+               granite-moe-1b-a400m at its published width and depth (24 blocks, d_model
                1,024, 16 heads of 64 with 8 KV heads, 32 experts top-8
                of width 512, tied head, bf16) trained by
-               ``launch/train.py`` (8 x 1,024 tokens, 16 steps, a
-               checkpoint every 4 in host memory, a failure at step 8,
+               ``launch/train.py`` (8 x 1,024 tokens, 8 steps, a
+               checkpoint every 2 in host memory, a failure at step 4,
                bitwise the uninterrupted run, the loss falling; the
                balance loss and the dropped choices of every step; step
                ms, tokens/s, model TFLOP/s on the active parameters and
@@ -159,7 +159,41 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                (deepseek's v zero-padded from 128 to 192: its ms and
                bytes) beside ``scaled_dot_product_attention``, and the
                flash gradient at one layer's training inputs of each,
-               bitwise on a second launch (the records' ``moe`` keys).
+               bitwise on a second launch (the records' ``moe`` keys);
+  hybrid    -- after it, recurrentgemma-2b at its published width and
+               depth (26 blocks: RG-LRU, RG-LRU, sliding-window attention
+               of window 2,048, repeated; bf16): the blocks' forward over
+               8 x 2,048 tokens (the window masks nothing: the flash
+               kernel once a local block); 8 prompts of 4,096 tokens,
+               twice the window (the plain windowed paths), prefilled and
+               decoded 32 steps as the decode path does; the RG-LRU
+               scan's and the windowed attention's device time in a
+               traced forward, prefill, step and training step, and each
+               alone at its prefill and decode inputs; decode against the
+               forward at 3 blocks on prompts past the window (float32
+               within 2e-3, bf16 within rounding's reach); then training
+               by ``launch/train.py`` cut to 12 blocks (8 x 1,024 tokens,
+               8 steps, a failure at step 4, bitwise the uninterrupted
+               run, the loss falling; step ms, tokens/s, model TFLOP/s,
+               peak, a traced step) and float32 at 3 blocks, the card
+               against the CPU;
+  frontends -- last, each model freed before the next: whisper-medium
+               at 24 + 24 blocks (``encode`` of 8 x 1,500 stub frames, the
+               flash kernel once an encoder block, non-causal; 8 prompts
+               of 448 tokens prefilled with the cross cache filled and 32
+               decode steps, the cross-attention through the flash kernel
+               at every step; one timed ``value_and_grad`` step with the
+               frames; float32 at 2 + 2 blocks, decode against the forward
+               and the gradient against the CPU), then pixtral-12b at 40
+               blocks (8 x (1,024 stub patches + 1,024 tokens) prefilled
+               and decoded; float32 decode against the forward at 2
+               blocks).  Then the flash forward at each new shape family
+               (the local block, the encoder, the cross-attention at a
+               prompt and at a decode step, pixtral's prefill) and its
+               gradient at the hybrid's and whisper's training inputs,
+               held against their plain versions and timed beside
+               ``scaled_dot_product_attention`` (the records'
+               ``new_families`` keys).
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers (forward and gradient) also count
@@ -247,10 +281,12 @@ SIM_DATASETS = {"random": (100, 0.5, 10, 0.3, 2.0),
                 "wiki": (256, 0.5, 12, 0.1, 2.0)}
 # the train path: examples/train_lm_with_dedup_torch.py's flow with
 # mamba2-130m at its published width (the reference trainer's default
-# arch), 8 x 1,024 tokens a step from TokenPipeline, 40 steps, a
-# checkpoint every 10 and the example's failure half way (step 20)
+# arch), 8 x 1,024 tokens a step from TokenPipeline, 12 steps, a
+# checkpoint every 3 and the example's failure half way (step 6); 40
+# steps and a checkpoint every 10 until the hybrid and frontends paths
+# came, cut for the run's time limit
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "mamba2-130m", 8, 1024
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TIMED_STEPS = 40, 10, 5
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TIMED_STEPS = 12, 3, 5
 # bf16 gradients against a float32 step on the same weights and tokens:
 # relative L2 error of each leaf and of the whole gradient (a wrong
 # gradient is off by ~1; bf16 rounds activations at every layer).  At
@@ -267,10 +303,11 @@ F32_CHAOS = 10
 # embedder) cut to DENSE_LAYERS of its 28 blocks (all 28 with bf16 weights
 # and gradients and float32 AdamW moments need 102 GB, past the card's 80:
 # PERF.md section 4), 2 x 1,024 tokens a step from TokenPipeline at vocab
-# 256,000, 16 steps, lr 3e-4, a checkpoint every 4 (in host memory:
-# MemoryCheckpoints), a failure at step 8
+# 256,000, 8 steps, lr 3e-4, a checkpoint every 2 (in host memory:
+# MemoryCheckpoints), a failure at step 4 (16 steps, every 4, at 8 until
+# the hybrid and frontends paths came, cut for the run's time limit)
 DENSE_ARCH, DENSE_LAYERS, DENSE_BATCH, DENSE_SEQ = "gemma-7b", 6, 2, 1024
-DENSE_STEPS, DENSE_CKPT_EVERY, DENSE_FAIL_AT, DENSE_TIMED = 16, 4, 8, 3
+DENSE_STEPS, DENSE_CKPT_EVERY, DENSE_FAIL_AT, DENSE_TIMED = 8, 2, 4, 3
 # the gradient kernel against its plain version at one layer's inputs of a
 # training step: each output within this fraction of its own largest
 # magnitude (bf16 outputs: a step is 2**-8 of a value, and P and dS are
@@ -286,7 +323,7 @@ LONG_BATCH, LONG_SEQ = 1, 8192
 # in bf16 at DECODE_CUT blocks against rounding's own reach
 DECODE_RUNS = {"gemma-7b": (8, 2048, 32), "mamba2-130m": (8, 1024, 32)}
 DECODE_CHECK, DECODE_CUT, DECODE_F32_TOL = (2, 256, 8), 2, 2e-3
-# the moe path, last: the two MoE configs at their published widths in
+# the moe path: the two MoE configs at their published widths in
 # bf16 -- arch -> (layers, d_model, heads, kv heads, q/k head width, v
 # width, experts, top-k) -- each decoded at its full depth as the decode
 # path decodes (MOE_DECODE = (batch, prompt, steps)) and trained by
@@ -294,19 +331,44 @@ DECODE_CHECK, DECODE_CUT, DECODE_F32_TOL = (2, 256, 8), 2, 2e-3
 # sequence); granite at its full 24, deepseek cut to its dense block and
 # two MoE blocks: its 15.7 B parameters with bf16 gradients and float32
 # AdamW moments need ~190 GB), MOE_STEPS steps with a failure at
-# MOE_FAIL_AT and a checkpoint every MOE_CKPT_EVERY in host memory; the
-# float32 card-vs-CPU checks at DECODE_CUT blocks on MOE_F32_TOKENS tokens
+# MOE_FAIL_AT and a checkpoint every MOE_CKPT_EVERY in host memory (16, 8
+# and 4 until the hybrid and frontends paths came, cut for the run's
+# time limit); the float32 card-vs-CPU checks at DECODE_CUT blocks on
+# MOE_F32_TOKENS tokens
 MOE_WIDTHS = {"granite-moe-1b-a400m": (24, 1024, 16, 8, 64, 64, 32, 8),
               "deepseek-v2-lite-16b": (27, 2048, 16, 16, 192, 128, 64, 6)}
 MOE_TRAIN = {"granite-moe-1b-a400m": (None, 8, 1024),
              "deepseek-v2-lite-16b": (3, 2, 1024)}
-MOE_STEPS, MOE_CKPT_EVERY, MOE_FAIL_AT, MOE_TIMED = 16, 4, 8, 3
+MOE_STEPS, MOE_CKPT_EVERY, MOE_FAIL_AT, MOE_TIMED = 8, 2, 4, 3
 MOE_DECODE, MOE_F32_TOKENS = (8, 2048, 32), 96
 # the operators only a MoE layer runs in a training step (the router's
 # softmax, the top-k and rank sorts, the dispatch scatter, the combine
 # gather and their backward): the traced step's routing/dispatch/combine
 MOE_OPS = ("sort", "searchsorted", "index_put", "index_select", "index_add",
            "gather", "scatter", "bincount", "softmax")
+# the hybrid path: recurrentgemma-2b (arXiv:2402.19427) at its published
+# width and depth in bf16: the blocks' forward over HYBRID_FORWARD = (batch,
+# tokens), within its window of 2,048 (the flash kernel); a prefill of
+# HYBRID_DECODE's prompts of twice the window (the reference's decode_32k
+# cell cut to 4,096 of context) and teacher-forced steps; decode against
+# the forward at HYBRID_CUT blocks (one RG-LRU, RG-LRU, local unit) on
+# HYBRID_CHECK, prompts past the window; training cut to HYBRID_TRAIN =
+# (blocks, batch, tokens), HYBRID_STEPS steps with a failure at
+# HYBRID_FAIL_AT, a checkpoint every HYBRID_CKPT_EVERY in host memory (8
+# steps, as train_dense's and moe's: at 16 the smoke ran 1,015-1,210 s of
+# its 1,200 s limit, most of the two runs the 3.6 s draws of a batch)
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_FORWARD, HYBRID_DECODE = (8, 2048), (8, 4096, 32)
+HYBRID_CUT, HYBRID_CHECK = 3, (2, 2100, 8)
+HYBRID_TRAIN, HYBRID_STEPS, HYBRID_FAIL_AT = (12, 8, 1024), 8, 4
+HYBRID_CKPT_EVERY, HYBRID_TIMED, HYBRID_F32_TOKENS = 2, 3, 96
+# the frontends path: whisper-medium (arXiv:2212.04356; 24 + 24 blocks,
+# 1,500 stub frames) prefilled with WHISPER_DECODE = (batch, prompt, steps)
+# -- 448 tokens, its decoder's context -- and one gradient step on the
+# prompts; pixtral-12b (hf mistralai/Pixtral-12B-2409; 40 blocks, 1,024
+# stub patch rows) prefilled with PIXTRAL_DECODE's prompts after them
+WHISPER_DECODE, WHISPER_F32_TOKENS = (8, 448, 32), 96
+PIXTRAL_DECODE = (8, 1024, 32)
 
 
 def check(cond, msg):
@@ -427,11 +489,13 @@ def serve(svc, queries):
     return gids, dists, emit, per_bucket * 1e3
 
 
-def traced(fn, what):
+def traced(fn, what, marks=None):
     """Trace one fn() call (after a warm one) with torch.profiler: its wall
     time, the device's busy share of it (kernel times summed, so overlap
     would count twice) and the kernels by device time.  Returns the
-    kernel rows, the wall ms and the kernel launches."""
+    kernel rows, the wall ms and the kernel launches.  ``marks`` (a dict)
+    gets the device ms of each ``record_function`` range named
+    "region::<tag>" (``Regions``), by tag."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -443,8 +507,16 @@ def traced(fn, what):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    if marks is not None:      # each range's kernels, on its CPU side
+        for e in prof.events():
+            if (e.name.startswith("region::")
+                    and e.device_type == DeviceType.CPU):
+                tag = e.name.split("::")[1]
+                marks[tag] = marks.get(tag, 0.0) + e.device_time_total / 1e3
+    # the ranges' spans on the device timeline are no kernels
     timed_rows = [e for e in prof.key_averages()
-                  if e.self_device_time_total > 0]
+                  if e.self_device_time_total > 0
+                  and not e.key.startswith("region::")]
     # kernels only: an operator's row repeats its kernels' device time
     rows = [e for e in timed_rows if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e3
@@ -1867,7 +1939,7 @@ def _grad_errors(got, want):
     return errs, math.sqrt(num / den)
 
 
-def f32_card_vs_cpu(c32, m32, few, l32, g32, full_depth):
+def f32_card_vs_cpu(c32, m32, few, l32, g32, full_depth, stubs=None):
     """float32 at the published width on a short batch: the card's loss
     and gradients (the SSD kernels) against the CPU's plain versions'
     (``l32``, ``g32`` of the CPU model ``m32``).  Below full depth, at the
@@ -1877,7 +1949,9 @@ def f32_card_vs_cpu(c32, m32, few, l32, g32, full_depth):
     ulp (a random sign each): the kernels' gradient must be within
     F32_CHAOS times that distance of the CPU's, and of the card's with
     the plain SSD versions in place of the kernels (the same card
-    products).  A wrong gradient is off by ~1, far outside it."""
+    products).  A wrong gradient is off by ~1, far outside it.
+    ``stubs``: the stub frontends' inputs on the CPU, as ``l32`` and
+    ``g32`` were taken with them (not at full depth)."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import (Transformer, load_param_tree,
@@ -1887,7 +1961,8 @@ def f32_card_vs_cpu(c32, m32, few, l32, g32, full_depth):
     k32 = Transformer(c32, "cuda")
     load_param_tree(k32, param_tree(m32))
     card_few = tuple(t.cuda() for t in few)
-    lk, gk = value_and_grad(k32, *card_few)
+    lk, gk = value_and_grad(k32, *card_few, **{
+        k: t.cuda() for k, t in (stubs or {}).items()})
     far = {p: float((a.cpu() - b).abs().max())
            for p, a, b in zip(*_flatten_pair(gk, g32))}
     errs, whole = _grad_errors(gk, g32)
@@ -1992,7 +2067,7 @@ def train_path(args, captured):
     ops.ssd_scan_bwd_cuda = recorder(captured, "ssd_scan_bwd",
                                      kssd.ssd_scan_bwd_cuda)
     runs = {}
-    for name, fail in (("failure at step 20", True),
+    for name, fail in ((f"failure at step {TRAIN_STEPS // 2}", True),
                        ("uninterrupted", False)):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
             argv = example.train_argv(
@@ -2036,7 +2111,7 @@ def train_path(args, captured):
         check(np.mean(stats.losses[-5:]) < np.mean(stats.losses[:5]),
               "the loss did not fall")
     (failed, launches, bwd_design), (clean, _, _) = (
-        runs["failure at step 20"], runs["uninterrupted"])
+        runs[f"failure at step {TRAIN_STEPS // 2}"], runs["uninterrupted"])
     want = _replayed(clean.losses, (TRAIN_STEPS // 2,), TRAIN_CKPT_EVERY)
     check(failed.restarts == 1 and failed.losses == want,
           "the run with a failure must repeat the uninterrupted run's loss "
@@ -2724,17 +2799,21 @@ def flash_bwd_long(seed):
             "long_max_rel_err_by_output": errs, "long_peak_gib": peak}
 
 
-def _teacher_forced(model, tokens, S, T):
-    """Prefill tokens[:, :S] into a new cache of S + T positions, then
-    decode tokens[:, S + t] at position S + t for each t < T.  Returns
-    the logits (B, T + 1, vocab) of the prefill's last position and of
-    each step -- the forward's at positions S - 1 .. S + T - 1 -- the
-    cache, the prefill's ms and each step's (CUDA events).  Every cache
-    row at a position not written yet must still be zero after the
-    prefill and after each step."""
+def _teacher_forced(model, tokens, S, T, stubs=None):
+    """Prefill tokens[:, :S] into a new cache of P + S + T positions,
+    then decode tokens[:, S + t] at position P + S + t for each t < T (P
+    the patch rows of ``stubs``' ``frontend_emb``; ``stubs`` the stub
+    frontends' inputs of ``prefill``).  Returns the logits (B, T + 1,
+    vocab) of the prefill's last position and of each step -- the
+    forward's at tokens S - 1 .. S + T - 1 -- the cache, the prefill's ms
+    and each step's (CUDA events).  Every cache row at a position not
+    written yet must still be zero after the prefill and after each
+    step."""
     import torch
     from repro_torch.models import decode_step, init_cache, prefill
-    cache = init_cache(model.cfg, tokens.shape[0], S + T,
+    stubs = stubs or {}
+    P = stubs["frontend_emb"].shape[1] if "frontend_emb" in stubs else 0
+    cache = init_cache(model.cfg, tokens.shape[0], P + S + T,
                        device=tokens.device)
     # K/V (R, B, Hkv, Smax, hd) and MLA's latent (R, B, Smax, width): the
     # position axis is the one before the last
@@ -2744,17 +2823,18 @@ def _teacher_forced(model, tokens, S, T):
     marks = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(T + 1)]
     marks[0][0].record()
-    last, cache = prefill(model, tokens[:, :S], cache)
+    last, cache = prefill(model, tokens[:, :S], cache, **stubs)
     marks[0][1].record()
     logits = [last]
     for t in range(T + 1):
-        pos = S + t                       # rows >= pos not written yet
+        pos = P + S + t                   # rows >= pos not written yet
         for leaf in kv:
             stray += torch.count_nonzero(leaf[..., pos:, :])
         if t == T:
             break
         marks[t + 1][0].record()
-        out, cache = decode_step(model, tokens[:, pos:pos + 1], cache, pos)
+        out, cache = decode_step(model, tokens[:, S + t:S + t + 1], cache,
+                                 pos)
         marks[t + 1][1].record()
         logits.append(out)
     torch.cuda.synchronize()
@@ -2764,15 +2844,18 @@ def _teacher_forced(model, tokens, S, T):
     return torch.cat(logits, dim=1), cache, ms[0], ms[1:]
 
 
-def _forward_rows(model, tokens, S, T):
-    """The full-sequence forward's logits at positions S - 1 .. S + T - 1
-    only: the blocks over all S + T tokens, then the final norm and the
-    head on those rows (gemma-7b's (8, 2,080, 256,000) float32 logits
-    would be 17 GB)."""
+def _forward_rows(model, tokens, S, T, stubs=None):
+    """The full-sequence forward's logits at tokens S - 1 .. S + T - 1
+    only: the blocks over all S + T tokens (after the P patch rows of
+    ``stubs``, where given), then the final norm and the head on those
+    rows (gemma-7b's (8, 2,080, 256,000) float32 logits would be 17
+    GB)."""
     from repro_torch.models import hidden_states
     from repro_torch.models.transformer import _logits
-    return _logits(model, hidden_states(model, tokens[:, :S + T])[
-        :, S - 1:S + T])
+    stubs = stubs or {}
+    P = stubs["frontend_emb"].shape[1] if "frontend_emb" in stubs else 0
+    return _logits(model, hidden_states(model, tokens[:, :S + T], **stubs)[
+        :, P + S - 1:P + S + T])
 
 
 def _decode_tokens(cfg, seed, B, n):
@@ -2782,13 +2865,15 @@ def _decode_tokens(cfg, seed, B, n):
         0, cfg.vocab, (B, n))).to("cuda")
 
 
-def decode_checks(cfg, seed):
-    """The decode path held to the full-sequence forward (DECODE_CHECK
-    tokens, B x (S + T)) on every row: in float32 on the card within
-    DECODE_F32_TOL (gemma-7b and the MoE configs cut to DECODE_CUT
-    blocks, mamba2-130m at its full depth), and in bf16 at DECODE_CUT
-    blocks within twice the bf16 forward's own distance to the float32
-    forward on the same weights.
+def decode_checks(cfg, seed, cut=DECODE_CUT, shape=DECODE_CHECK,
+                  stubs=None):
+    """The decode path held to the full-sequence forward (``shape`` =
+    (B, S, T) tokens, B x (S + T); ``stubs`` the stub frontends' inputs,
+    as bf16 and float32 models take them) on every row: in float32 on
+    the card within DECODE_F32_TOL (gemma-7b and the MoE configs cut to
+    ``cut`` blocks, mamba2-130m at its full depth), and in bf16 at
+    ``cut`` blocks within twice the bf16 forward's own distance to the
+    float32 forward on the same weights.
 
     A MoE config runs both at the capacity factor E / K, where no token
     drops (C >= the tokens of a call): at the published factor a decode
@@ -2807,9 +2892,11 @@ def decode_checks(cfg, seed):
     from repro_torch.launch.train import cut_depth
     from repro_torch.models import (Transformer, init_params,
                                     load_param_tree, param_tree)
-    B, S, T = DECODE_CHECK
+    B, S, T = shape
     tokens = _decode_tokens(cfg, seed + 1, B, S + T)
     f32 = dict(param_dtype="float32", compute_dtype="float32")
+    st16 = {k: t.bfloat16() for k, t in (stubs or {}).items()}
+    st32 = {k: t.float() for k, t in (stubs or {}).items()}
     gen = lambda: torch.Generator(device="cuda").manual_seed(seed)  # noqa
     moe16 = moe32 = {}
     note16 = note32 = ""
@@ -2820,17 +2907,16 @@ def decode_checks(cfg, seed):
         moe32 = dict(moe=dataclasses.replace(cfg.moe, capacity_factor=E / K))
         note16 = f", all {E} experts (no drops)"
         note32 = f", top-{K} at capacity factor {E / K:.4g} (no drops)"
-    m16 = init_params(dataclasses.replace(cut_depth(cfg, DECODE_CUT),
-                                          **moe16),
+    m16 = init_params(dataclasses.replace(cut_depth(cfg, cut), **moe16),
                       generator=gen(), device="cuda")
     m32 = Transformer(dataclasses.replace(m16.cfg, **f32), "cuda")
     load_param_tree(m32, param_tree(m16))
-    dec16 = _teacher_forced(m16, tokens, S, T)[0]
-    fwd16 = _forward_rows(m16, tokens, S, T)
-    fwd32 = _forward_rows(m32, tokens, S, T)
+    dec16 = _teacher_forced(m16, tokens, S, T, st16)[0]
+    fwd16 = _forward_rows(m16, tokens, S, T, st16)
+    fwd32 = _forward_rows(m32, tokens, S, T, st32)
     gap = float((dec16 - fwd16).abs().max())
     reach = float((fwd16 - fwd32).abs().max())
-    print(f"decode {cfg.name} bf16 at {DECODE_CUT} blocks{note16}, {B} x "
+    print(f"decode {cfg.name} bf16 at {m16.cfg.n_layers} blocks{note16}, {B} x "
           f"({S} + {T}) tokens: max |decode - forward| {gap:.4g}, the bf16 "
           f"forward's own max |bf16 - float32| {reach:.4g} (limit "
           f"{2 * reach:.4g})")
@@ -2845,8 +2931,8 @@ def decode_checks(cfg, seed):
         routed = Transformer(dataclasses.replace(m32.cfg, **moe32), "cuda")
         load_param_tree(routed, param_tree(m32))
         m32 = routed
-    dec32 = _teacher_forced(m32, tokens, S, T)[0]
-    fwd32 = _forward_rows(m32, tokens, S, T)
+    dec32 = _teacher_forced(m32, tokens, S, T, st32)[0]
+    fwd32 = _forward_rows(m32, tokens, S, T, st32)
     err = float((dec32 - fwd32).abs().max())
     print(f"decode {cfg.name} float32 at {m32.cfg.n_layers} blocks{note32}, "
           f"{B} x ({S} + {T}) tokens: max |decode - forward| {err:.3g} "
@@ -3442,6 +3528,722 @@ def moe_path(args, captured):
     return out, fwd_keys, bwd_keys
 
 
+class Regions:
+    """Marks the RG-LRU scan (``rglru.linear_scan``) and the plain
+    attention score paths (``_einsum_attn``, ``_chunked_attn``,
+    ``_decode_attn_delta``, which run the sliding window) as
+    torch.profiler ranges while in use (``with Regions()``): a trace's
+    ``key_averages()`` then gives each range's device time, the kernels
+    launched inside it summed (``device_ms``)."""
+
+    NAMES = {"linear_scan": "rglru_scan", "_einsum_attn": "window_attn",
+             "_chunked_attn": "window_attn",
+             "_decode_attn_delta": "window_attn"}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import attention, rglru
+        self.real = []
+        for mod in (rglru, attention):
+            for fn, tag in self.NAMES.items():
+                if not hasattr(mod, fn):
+                    continue
+                real = getattr(mod, fn)
+                self.real.append((mod, fn, real))
+
+                def marked(*a, real=real, tag=tag, **kw):
+                    with torch.profiler.record_function(f"region::{tag}"):
+                        return real(*a, **kw)
+                setattr(mod, fn, marked)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, real in self.real:
+            setattr(mod, fn, real)
+
+    @staticmethod
+    def device_ms(fn, what):
+        """Trace fn() (after a warm call) inside the ranges: (the traced
+        kernel rows, wall ms, launches, {range: device ms})."""
+        marks = dict.fromkeys(set(Regions.NAMES.values()), 0.0)
+        with Regions():
+            rows, wall, n = traced(fn, what, marks)
+        print(f"{what}: device ms inside the marked ranges "
+              + ", ".join(f"{k} {v:.3f}" for k, v in sorted(marks.items())))
+        return rows, wall, n, marks
+
+
+def shape_recorder(captured, prefix, fn):
+    """fn, recording the arguments of its first call at each (Sq, Sk,
+    causal) under f"{prefix} {Sq}x{Sk}" (" causal" appended if causal)."""
+    def wrapped(q, k, v, *a, **kw):
+        c = " causal" if kw.get("causal", True) else ""
+        captured.setdefault(f"{prefix} {q.shape[2]}x{k.shape[2]}{c}",
+                            ((q, k, v, *a), kw))
+        return fn(q, k, v, *a, **kw)
+    return wrapped
+
+
+def _serve_run(model, tokens, S, T, what, stubs=None):
+    """``_teacher_forced`` with every launch count set to 0 just before
+    and read just after, the flash launches by design, the median step,
+    cache bytes and peak memory above what was held; prints them."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    dec, cache, prefill_ms, step_ms = _teacher_forced(model, tokens, S, T,
+                                                      stubs)
+    launches = _launch_counts()
+    by_design = dict(kfa.flash_attention_cuda.launches_by_design)
+    step = float(sorted(step_ms)[T // 2])
+    cache_bytes = sum(t.nbytes for seg in cache for blk in seg.values()
+                      for t in blk.values())
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    B = tokens.shape[0]
+    print(f"phase {what}: {model.cfg.n_layers} blocks, B = {B}, prompt {S}"
+          f", {T} steps: prefill {prefill_ms:.2f} ms, decode {step:.3f} ms a "
+          f"step (median; min {min(step_ms):.3f}, max {max(step_ms):.3f}), "
+          f"{B / step * 1e3:.1f} tokens/s; cache {cache_bytes} bytes; peak "
+          f"device memory {peak:.2f} GiB above the {held / 2**30:.2f} GiB "
+          f"held before; launches {launches}, flash by design {by_design}")
+    check(by_design["tensor_core"] == launches["flash_attention"],
+          f"{what}: every flash launch must take the tensor-core design: "
+          f"{by_design}")
+    return dec, cache, {"batch": B, "prompt": S, "steps": T,
+                        "prefill_ms": prefill_ms, "decode_step_ms": step,
+                        "decode_step_ms_each": step_ms,
+                        "tokens_per_s": B / step * 1e3,
+                        "cache_bytes": cache_bytes, "peak_gib": peak,
+                        "launches": launches}
+
+
+def _only(launches, **want):
+    """``launches`` must be ``want`` for the kernels named and 0 for every
+    other."""
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    return launches == full, full
+
+
+def _timed_blocks(model, tokens, stubs=None):
+    """The blocks' forward (``hidden_states``: the head is left out) with
+    every launch count set to 0 just before and read just after: (ms by
+    CUDA events, launches, the flash launches by design)."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import hidden_states
+    hidden_states(model, tokens, **(stubs or {}))          # warm
+    torch.cuda.synchronize()
+    _reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    hidden_states(model, tokens, **(stubs or {}))
+    stop.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(stop), _launch_counts(),
+            dict(kfa.flash_attention_cuda.launches_by_design))
+
+
+def _train_runs(arch, layers, batch, seq, seed, what):
+    """``launch/train.py`` on ``arch`` cut to ``layers`` blocks:
+    HYBRID_STEPS steps with a failure at HYBRID_FAIL_AT and the same run
+    uninterrupted, checkpoints in host memory; each run with every launch
+    count set to 0 just before and read just after.  Checks the flash
+    launches a step, the tensor-core design, a falling loss and the
+    replay bitwise.  Returns (the uninterrupted run's stats, its
+    launches, by design)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import train
+    cfg = train.cut_depth(get_config(arch), layers)
+    attn = sum(k != "rglru" for s in cfg.segments for k in s.kinds
+               for _ in range(s.repeat))
+    runs = {}
+    for name, fail in ((f"failure at step {HYBRID_FAIL_AT}", True),
+                       ("uninterrupted", False)):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as ck:
+            argv = ["--arch", arch, "--steps", str(HYBRID_STEPS), "--batch",
+                    str(batch), "--seq", str(seq), "--lr", "3e-4",
+                    "--ckpt-dir", ck, "--ckpt-every", str(HYBRID_CKPT_EVERY),
+                    "--device", "cuda", "--seed", str(seed), "--layers",
+                    str(layers)]
+            argv += ["--fail-at", str(HYBRID_FAIL_AT)] if fail else []
+            _reset_launches()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with MemoryCheckpoints() as ckpts:
+                stats = train.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = _launch_counts()
+        by_design = {
+            "flash_attention": dict(
+                kfa.flash_attention_cuda.launches_by_design),
+            "flash_attention_bwd": dict(
+                kfa.flash_attention_bwd_cuda.launches_by_design)}
+        runs[name] = (stats, launches, by_design)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        print(f"phase {what} ({name}): {stats.steps_run} steps, "
+              f"{stats.restarts} restarts, {secs:.1f} s with the token draws "
+              f"and {ckpts.saves} checkpoints of {ckpts.nbytes / 1e9:.2f} GB "
+              f"in host memory ({ckpts.seconds:.1f} s to save and restore); "
+              f"loss {stats.losses[0]:.4f} -> {stats.losses[-1]:.4f}; "
+              f"launches {launches}, by design {by_design}; peak device "
+              f"memory {peak:.2f} GiB above the {held / 2**30:.2f} GiB held "
+              f"before the run")
+        n = stats.steps_run
+        ok, want = _only(launches, flash_attention=2 * attn * n,
+                         flash_attention_bwd=attn * n)
+        check(ok, f"{what}: launches {launches}, expected {want} (the flash "
+              f"kernel twice an attention block a step, forward and its "
+              f"rematerialisation, and its gradient once)")
+        for k, designs in by_design.items():
+            check(designs["tensor_core"] == launches[k],
+                  f"every training launch of {k} must take the tensor-core "
+                  f"design: {by_design[k]}")
+        check(all(math.isfinite(v) for v in stats.losses),
+              "non-finite training loss")
+        check(np.mean(stats.losses[-5:]) < np.mean(stats.losses[:5]),
+              f"{what}: the loss did not fall")
+        torch.cuda.empty_cache()
+    (failed, *_), (clean, launches, by_design) = (
+        runs[f"failure at step {HYBRID_FAIL_AT}"], runs["uninterrupted"])
+    want = _replayed(clean.losses, (HYBRID_FAIL_AT,), HYBRID_CKPT_EVERY)
+    check(failed.restarts == 1 and failed.losses == want,
+          f"{what}: the run with a failure must repeat the uninterrupted "
+          f"run's loss trajectory bit for bit")
+    print(f"{what}: the replayed trajectory equals the uninterrupted one "
+          f"bitwise over {len(want)} losses; losses "
+          f"{[round(v, 4) for v in clean.losses]}")
+    return clean, launches, by_design
+
+
+def _step_numbers(cfg, batch, seq, seed, what):
+    """One training step of ``cfg`` (``launch/train.make_step``: forward,
+    backward and AdamW) timed over HYBRID_TIMED after a warm one: ms,
+    tokens/s, model TFLOP/s (6 x ``count_params`` x tokens), peak memory,
+    the draw of a batch, a traced step."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import count_params, init_params, param_tree
+    n_params = count_params(cfg)
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    params = param_tree(model)
+    pipe = TokenPipeline(cfg.vocab, batch, seq, seed=seed, device="cuda")
+    draw_ms, data = timed(lambda: pipe._batch_at(0), 1)
+    opt_cfg = optim.AdamWConfig(warmup_steps=10, total_steps=HYBRID_STEPS)
+    step = train.make_step(model, opt_cfg)
+    with train.deterministic():
+        state = (params, optim.init(params))
+        del params
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = _each_ms(lambda: step(state, data), HYBRID_TIMED)
+        peak = torch.cuda.max_memory_allocated()
+        tokens = batch * seq
+        tokens_s = tokens / (step_ms / 1e3)
+        tflops = 6 * n_params * tokens / (step_ms / 1e3) / 1e12
+        print(f"{what} step: {step_ms:.2f} ms (CUDA events, mean of "
+              f"{HYBRID_TIMED} after one warm-up; forward, backward and "
+              f"AdamW), {tokens_s:.0f} tokens/s, {tflops:.2f} model TFLOP/s "
+              f"(6 x {n_params / 1e9:.3f} B parameters x {tokens} tokens); "
+              f"peak device memory {peak / 2**30:.2f} GiB "
+              f"({(peak - held) / 2**30:.2f} above the {held / 2**30:.2f} GiB"
+              f" of the model, its state, the batch and earlier paths); "
+              f"TokenPipeline draw {draw_ms:.1f} ms a batch")
+        rows, wall, n, regions = Regions.device_ms(
+            lambda: step(state, data), f"one {what} step")
+        parts = device_parts(rows, "flash_attention")
+        parts["flash_attention_bwd"] = sum(
+            e.self_device_time_total / 1e3 for e in rows
+            if "fa_bwd" in e.key.lower())
+        print(f"{what} step device ms by part: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()))
+    out = {"params": n_params, "batch": batch, "seq": seq,
+           "step_ms": step_ms, "tokens_s": tokens_s, "model_tflops": tflops,
+           "peak_gib": peak / 2**30, "draw_ms": draw_ms,
+           "traced_step_wall_ms": wall, "traced_step_launches": n,
+           "traced_step_device_ms": parts, "traced_step_regions_ms": regions}
+    few = (data[0][:1, :HYBRID_F32_TOKENS].cpu(),
+           data[1][:1, :HYBRID_F32_TOKENS].cpu())
+    del state, step, model, data
+    torch.cuda.empty_cache()
+    return out, few
+
+
+def _f32_grads(cfg, cut_cfg, seed, few, stubs=None):
+    """float32 at ``cut_cfg`` (the published width, cut): the card's loss
+    and gradient against the CPU's plain versions', with ``stubs`` (the
+    stub frontends' inputs) where given."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import (Transformer, init_params,
+                                    load_param_tree, param_tree,
+                                    value_and_grad)
+    c32 = dataclasses.replace(cut_cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    m16 = init_params(cut_cfg, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    m32 = Transformer(c32, "cpu")
+    load_param_tree(m32, param_tree(m16))
+    del m16
+    cpu_stubs = {k: t.float().cpu() for k, t in (stubs or {}).items()}
+    t0 = time.perf_counter()
+    l32, g32 = value_and_grad(m32, *few, **cpu_stubs)
+    print(f"{cfg.name} float32 at {c32.n_layers} blocks on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = f32_card_vs_cpu(c32, m32, few, l32, g32, False, cpu_stubs)
+    del m32, g32
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_path(args, captured):
+    """recurrentgemma-2b at its published width and depth (26 blocks: 8
+    units of two RG-LRU blocks and a sliding-window attention block of
+    window 2,048, then two RG-LRU blocks; bf16, weights from --seed): the
+    blocks' forward over HYBRID_FORWARD tokens (the window masks nothing:
+    the flash kernel once a local block), a prefill of HYBRID_DECODE's
+    prompts, twice the window (the plain windowed paths), and its
+    teacher-forced decode steps (the window in the one-token path), the
+    device time of the RG-LRU scan and of the windowed attention; decode
+    against the forward at HYBRID_CUT blocks past the window (float32
+    within DECODE_F32_TOL, bf16 within rounding's reach); then training
+    by ``launch/train.py`` cut to HYBRID_TRAIN's blocks, a failure's
+    replay bitwise, and float32 on the card against the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import (attention, decode_step, hidden_states,
+                                    init_cache, init_params, prefill, rglru)
+    t_path = time.perf_counter()
+    held0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(HYBRID_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           cfg.window, cfg.cdtype) == (26, 2560, 10, 1, 256, 2048,
+                                       torch.bfloat16),
+          f"{HYBRID_ARCH} must run at its published width and depth")
+    local = sum(k == "local" for s in cfg.segments for k in s.kinds
+                for _ in range(s.repeat))
+    out = {"local_blocks": local}
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    # ---- the blocks' forward: the window masks nothing ---------------------
+    B, S = HYBRID_FORWARD
+    tokens = _decode_tokens(cfg, args.seed, B, S)
+    ops.flash_attention_cuda = shape_recorder(captured, "hybrid",
+                                              kfa.flash_attention_cuda)
+    ms, launches, by_design = _timed_blocks(model, tokens)
+    ops.flash_attention_cuda = kfa.flash_attention_cuda
+    ok, want = _only(launches, flash_attention=local)
+    check(ok and by_design["tensor_core"] == local,
+          f"{HYBRID_ARCH} forward: launches {launches}, expected {want}, all "
+          f"tensor_core ({by_design}): the flash kernel once a local block")
+    print(f"phase hybrid forward: {B} x {S} tokens through {cfg.n_layers} "
+          f"blocks in {ms:.2f} ms ({B * S / ms * 1e3:.0f} tokens/s; the head "
+          f"left out); launches {launches}")
+    rows, wall, n, regions = Regions.device_ms(
+        lambda: hidden_states(model, tokens), f"one {HYBRID_ARCH} forward")
+    out["forward"] = {"batch": B, "seq": S, "ms": ms, "launches": launches,
+                      "traced_device_ms": device_parts(rows,
+                                                       "flash_attention"),
+                      "traced_regions_ms": regions}
+    # ---- prefill past the window, then decode --------------------------------
+    B, S, T = HYBRID_DECODE
+    tokens = _decode_tokens(cfg, args.seed, B, S + T)
+    # the warm run: the first inputs of the scan (the prefill's) and of
+    # the windowed attention at the prefill and at a decode step
+    marked = [(mod, name, getattr(mod, name)) for mod, name in (
+        (rglru, "linear_scan"), (attention, "_chunked_attn"),
+        (attention, "_einsum_attn"), (attention, "_decode_attn_delta"))]
+    for mod, name, real in marked:
+        setattr(mod, name, recorder(captured, f"hybrid {name}", real))
+    _teacher_forced(model, tokens, S, 1)
+    for mod, name, real in marked:
+        setattr(mod, name, real)
+    dec, cache, rec = _serve_run(model, tokens, S, T, "hybrid decode")
+    ok, want = _only(rec["launches"])
+    check(ok, f"{HYBRID_ARCH} prefill of {S} tokens (past the window) and "
+          f"decode: launches {rec['launches']}, expected {want} (the plain "
+          f"windowed paths)")
+    last = S + T - 1
+    rows, wall, n, regions = Regions.device_ms(lambda: decode_step(
+        model, tokens[:, last:last + 1], cache, last),
+        f"one {HYBRID_ARCH} decode step")
+    rec.update(traced_step_wall_ms=wall, traced_step_launches=n,
+               traced_step_device_ms=device_parts(rows, "flash_attention"),
+               traced_step_regions_ms=regions)
+    del cache
+    cache = init_cache(cfg, B, S + T, device="cuda")
+    rows, wall, n, regions = Regions.device_ms(
+        lambda: prefill(model, tokens[:, :S], cache),
+        f"one {HYBRID_ARCH} prefill of {B} x {S}")
+    rec.update(traced_prefill_wall_ms=wall, traced_prefill_launches=n,
+               traced_prefill_device_ms=device_parts(rows, "flash_attention"),
+               traced_prefill_regions_ms=regions)
+    del cache
+    fwd = _forward_rows(model, tokens, S, T)
+    check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(fwd).all()),
+          f"{HYBRID_ARCH}: non-finite logits")
+    err = float((dec - fwd).abs().max())
+    top1 = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    print(f"hybrid decode bf16 at {cfg.n_layers} blocks against the forward "
+          f"at the {T + 1} decoded positions (reported, not checked): max "
+          f"|logit difference| {err:.4g}, top-1 agreement {top1:.4f}")
+    rec.update(bf16_max_abs_err=err, bf16_top1_agreement=top1)
+    rec.update(hybrid_parts(captured, local, cfg.n_layers - local))
+    out["decode"] = rec
+    del model, dec, fwd, tokens
+    torch.cuda.empty_cache()
+    out["decode"].update(decode_checks(cfg, args.seed, HYBRID_CUT,
+                                       HYBRID_CHECK))
+    torch.cuda.empty_cache()
+    # ---- training ----------------------------------------------------------------
+    layers, batch, seq = HYBRID_TRAIN
+    tcfg = train.cut_depth(cfg, layers)
+    ops.flash_attention_bwd_cuda = recorder(
+        captured, "flash_attention_bwd hybrid", kfa.flash_attention_bwd_cuda)
+    clean, launches, by_design = _train_runs(HYBRID_ARCH, layers, batch, seq,
+                                             args.seed, "hybrid train")
+    ops.flash_attention_bwd_cuda = kfa.flash_attention_bwd_cuda
+    tr = {"blocks": layers, "losses": clean.losses, "launches": launches,
+          "launches_by_design": by_design}
+    nums, few = _step_numbers(tcfg, batch, seq, args.seed, "hybrid train")
+    tr.update(nums)
+    tr["f32_card_vs_cpu"] = _f32_grads(cfg, train.cut_depth(cfg, HYBRID_CUT),
+                                       args.seed, few)
+    out["train"] = tr
+    out["seconds"] = time.perf_counter() - t_path
+    out["path_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase hybrid: {out['seconds']:.1f} s; peak device memory "
+          f"{out['path_peak_gib']:.2f} GiB with the {held0 / 2**30:.2f} GiB "
+          f"earlier paths hold")
+    return out
+
+
+def hybrid_parts(captured, n_local, n_rglru):
+    """The RG-LRU scan and the windowed attention alone, at their first
+    inputs of the hybrid's prefill (a scan over 4,096 steps, the chunked
+    windowed path of 4,096 rows) and decode step (the one-token windowed
+    path over the cache), CUDA events over REPS calls: ms a call and a
+    prefill or step, beside the bound of the function each computes (the
+    scan: a and b read, h written, float32; the windowed attention: the
+    window's q.k and p.v products at the bf16 peak, the windowed flash
+    kernel's, or its bytes)."""
+    from repro_torch.models import attention, rglru
+    out = {}
+    (a, b), _ = captured.pop("hybrid linear_scan")
+    ms, _ = timed(lambda: rglru.linear_scan(a, b), REPS)
+    bound, by = bound_of(0.0, PEAK_F32_FLOPS,
+                         3 * a.numel() * a.element_size())
+    print(f"hybrid: the RG-LRU scan at a prefill's inputs {tuple(a.shape)} "
+          f"float32: {ms:.4f} ms a call, {n_rglru} a prefill "
+          f"({ms * n_rglru:.2f} ms); bound {bound:.4f} ms ({by})")
+    out.update(scan_ms=ms, scan_bound_ms=bound, scan_shape=list(a.shape),
+               scan_calls_a_prefill=n_rglru)
+    del a, b
+    path = next(p for p in ("_chunked_attn", "_einsum_attn")
+                if f"hybrid {p}" in captured)
+    (q, k, v, causal, window, off), _ = captured.pop(f"hybrid {path}")
+    for p in ("_chunked_attn", "_einsum_attn"):
+        captured.pop(f"hybrid {p}", None)
+    fn = getattr(attention, path)
+    ms, _ = timed(lambda: fn(q, k, v, causal, window, off), REPS)
+    B, H, Sq, dh = q.shape
+    seen = sum(min(i + 1, window) for i in range(Sq))
+    flops = 2.0 * B * H * seen * 2 * dh
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    print(f"hybrid: the windowed attention ({path}) at a prefill's inputs "
+          f"q {tuple(q.shape)}, k {tuple(k.shape)}, window {window}: {ms:.3f}"
+          f" ms a call, {n_local} a prefill ({ms * n_local:.1f} ms); a "
+          f"windowed flash kernel's bound {bound:.4f} ms ({by}: "
+          f"{flops / 1e9:.1f} GFLOP)")
+    out.update(window_prefill_ms=ms, window_prefill_bound_ms=bound,
+               window_prefill_bound_by=by, window_calls_a_prefill=n_local)
+    del q, k, v
+    args, _ = captured.pop("hybrid _decode_attn_delta")
+    ms, _ = timed(lambda: attention._decode_attn_delta(*args), REPS)
+    q, kc = args[0], args[1]
+    window = args[6]
+    nbytes = (q.numel() + 2 * q.shape[0] * kc.shape[1] * window
+              * kc.shape[-1]) * kc.element_size()
+    bound, by = bound_of(0.0, PEAK_BF16_FLOPS, nbytes)
+    print(f"hybrid: the windowed one-token attention at a decode step's "
+          f"inputs (cache {tuple(kc.shape)}, window {window}): {ms:.4f} ms a"
+          f" call, {n_local} a step ({ms * n_local:.2f} ms); bound "
+          f"{bound:.4f} ms ({by}: the window's K/V read once)")
+    out.update(window_decode_ms=ms, window_decode_bound_ms=bound,
+               window_calls_a_step=n_local)
+    return out
+
+
+def _stub(seed, B, n, d, dtype):
+    """Stub frame or patch embeddings (B, n, d) drawn on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, n, d), generator=g, device="cuda").to(dtype)
+
+
+def whisper_run(args, captured):
+    """whisper-medium at its published width and depth (24 encoder and 24
+    decoder blocks, bf16): ``encode`` of WHISPER_FRAMES stub frames (the
+    flash kernel once an encoder block, non-causal), a prefill of
+    WHISPER_DECODE's prompts with the cross cache filled and its
+    teacher-forced decode steps (the cross-attention through the flash
+    kernel at the prefill and at every step, Sq != Sk), one timed
+    ``value_and_grad`` step with the frames, and float32 at 2 + 2
+    blocks: decode against the forward and the gradient against the
+    CPU's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import (count_params, encode, init_params,
+                                    value_and_grad)
+    cfg = get_config("whisper-medium")
+    L = cfg.encoder_layers
+    check((L, cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.hd,
+           cfg.encoder_frames, cfg.cdtype) == (24, 24, 1024, 16, 64, 1500,
+                                               torch.bfloat16),
+          "whisper-medium must run at its published width and depth")
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    B, S, T = WHISPER_DECODE
+    frames = _stub(args.seed + 2, B, cfg.encoder_frames, cfg.d_model,
+                   cfg.cdtype)
+    out = {}
+    # ---- encode ----------------------------------------------------------------
+    ops.flash_attention_cuda = shape_recorder(captured, "whisper",
+                                              kfa.flash_attention_cuda)
+    with torch.no_grad():
+        encode(model, frames)
+        torch.cuda.synchronize()
+        _reset_launches()
+        ms, _ = timed(lambda: encode(model, frames), 1)
+    launches = _launch_counts()
+    ok, want = _only(launches, flash_attention=2 * L)   # warm-up and timed
+    check(ok, f"whisper encode: launches {launches}, expected {want} over "
+          f"two calls (the flash kernel once an encoder block)")
+    print(f"phase frontends whisper encode: {B} x {cfg.encoder_frames} "
+          f"frames through {L} blocks in {ms:.2f} ms; launches {launches} "
+          f"(two calls)")
+    out["encode"] = {"batch": B, "frames": cfg.encoder_frames, "ms": ms,
+                     "launches": launches["flash_attention"] // 2}
+    # ---- prefill with the cross cache, then decode ---------------------------
+    tokens = _decode_tokens(cfg, args.seed, B, S + T + 1)
+    stubs = {"enc_frames": frames}
+    _teacher_forced(model, tokens, S, 1, stubs)              # warm
+    dec, cache, rec = _serve_run(model, tokens, S, T, "frontends whisper",
+                                 stubs)
+    ops.flash_attention_cuda = kfa.flash_attention_cuda
+    ok, want = _only(rec["launches"], flash_attention=3 * L + T * L)
+    check(ok, f"whisper prefill and decode: launches {rec['launches']}, "
+          f"expected {want} (the prefill: the encoder, the self- and the "
+          f"cross-attention once a block; a decode step: the "
+          f"cross-attention once a block)")
+    want_cross = 2 * L * B * cfg.n_kv_heads * cfg.encoder_frames * cfg.hd * \
+        frames.element_size()
+    rec["cross_cache_bytes"] = sum(
+        t.nbytes for seg in cache for blk in seg.values()
+        for key, t in blk.items() if key in ("xk", "xv"))
+    check(rec["cross_cache_bytes"] == want_cross,
+          f"cross cache {rec['cross_cache_bytes']} bytes, expected "
+          f"{want_cross}")
+    del cache
+    fwd = _forward_rows(model, tokens, S, T, stubs)
+    check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(fwd).all()),
+          "whisper: non-finite logits")
+    rec["bf16_max_abs_err"] = float((dec - fwd).abs().max())
+    rec["bf16_top1_agreement"] = float(
+        (dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    print(f"whisper decode bf16 at 24 + 24 blocks against the forward "
+          f"(reported): max |logit difference| {rec['bf16_max_abs_err']:.4g}"
+          f", top-1 agreement {rec['bf16_top1_agreement']:.4f}")
+    out["decode"] = rec
+    del dec, fwd
+    # ---- one training step's gradient with the frames -------------------------
+    n_params = count_params(cfg)
+    toks, labels = tokens[:, :S], tokens[:, 1:S + 1]
+    ops.flash_attention_bwd_cuda = recorder(
+        captured, "flash_attention_bwd whisper", kfa.flash_attention_bwd_cuda)
+    _reset_launches()
+    value_and_grad(model, toks, labels, enc_frames=frames)
+    launches = _launch_counts()
+    ops.flash_attention_bwd_cuda = kfa.flash_attention_bwd_cuda
+    by_design = {k: dict(f.launches_by_design) for k, f in (
+        ("flash_attention", kfa.flash_attention_cuda),
+        ("flash_attention_bwd", kfa.flash_attention_bwd_cuda))}
+    ok, want = _only(launches, flash_attention=6 * L,
+                     flash_attention_bwd=3 * L)
+    check(ok and all(d["tensor_core"] == launches[k]
+                     for k, d in by_design.items()),
+          f"whisper value_and_grad: launches {launches}, expected {want}, "
+          f"all tensor_core ({by_design}): the encoder, self- and "
+          f"cross-attention forward twice and backward once a block")
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _each_ms(lambda: value_and_grad(model, toks, labels,
+                                              enc_frames=frames), 3)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    # the encoder and the cross-attention's K/V projections run over the
+    # frames, every other parameter over the tokens
+    over_frames = (sum(p.numel() for p in model.encoder.parameters())
+                   + sum(b.cross.wk.numel() + b.cross.wv.numel()
+                         for seg in model.segments for b in seg))
+    work = 6 * (over_frames * B * cfg.encoder_frames
+                + (n_params - over_frames) * B * S)
+    tflops = work / (step_ms / 1e3) / 1e12
+    print(f"frontends whisper value_and_grad: {B} x {S} tokens with {B} x "
+          f"{cfg.encoder_frames} frames, {step_ms:.2f} ms (CUDA events, mean "
+          f"of 3 after one warm-up; forward and backward), {tflops:.2f} "
+          f"model TFLOP/s (6 x parameters x the rows each part runs), peak "
+          f"{peak:.2f} GiB above the {held / 2**30:.2f} held; launches "
+          f"{launches}")
+    out["grad_step"] = {"batch": B, "seq": S, "ms": step_ms,
+                        "model_tflops": tflops, "peak_gib": peak,
+                        "launches": launches, "launches_by_design": by_design}
+    del model, frames
+    torch.cuda.empty_cache()
+    # ---- float32 at 2 + 2 blocks --------------------------------------------------
+    cut = dataclasses.replace(train.cut_depth(cfg, 2), encoder_layers=2)
+    Bc, Sc, Tc = DECODE_CHECK
+    small = _stub(args.seed + 3, Bc, cfg.encoder_frames, cfg.d_model,
+                  torch.float32)
+    out["decode"].update(decode_checks(cut, args.seed, 2, DECODE_CHECK,
+                                       {"enc_frames": small}))
+    few_toks = _decode_tokens(cfg, args.seed + 4, 1, WHISPER_F32_TOKENS + 1)
+    few = (few_toks[:, :-1].cpu(), few_toks[:, 1:].cpu())
+    out["f32_card_vs_cpu"] = _f32_grads(cfg, cut, args.seed, few,
+                                        {"enc_frames": small[:1]})
+    torch.cuda.empty_cache()
+    return out
+
+
+def pixtral_run(args, captured):
+    """pixtral-12b at its published width and depth (40 blocks, bf16):
+    a prefill of PIXTRAL_DECODE's prompts after their stub patch rows
+    (the flash kernel once a block over patches and text) and its
+    teacher-forced decode steps; float32 decode against the forward at 2
+    blocks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    cfg = get_config("pixtral-12b")
+    P = cfg.frontend_tokens
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+           P, cfg.cdtype) == (40, 5120, 32, 8, 128, 1024, torch.bfloat16),
+          "pixtral-12b must run at its published width and depth")
+    model = init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(args.seed), device="cuda")
+    B, S, T = PIXTRAL_DECODE
+    stubs = {"frontend_emb": _stub(args.seed + 5, B, P, cfg.d_model,
+                                   cfg.cdtype)}
+    tokens = _decode_tokens(cfg, args.seed, B, S + T)
+    _teacher_forced(model, tokens, S, 1, stubs)              # warm
+    ops.flash_attention_cuda = shape_recorder(captured, "pixtral",
+                                              kfa.flash_attention_cuda)
+    dec, cache, rec = _serve_run(model, tokens, S, T, "frontends pixtral",
+                                 stubs)
+    ops.flash_attention_cuda = kfa.flash_attention_cuda
+    ok, want = _only(rec["launches"], flash_attention=cfg.n_layers)
+    check(ok, f"pixtral prefill and decode: launches {rec['launches']}, "
+          f"expected {want} (the flash kernel once a block at the prefill)")
+    del cache
+    fwd = _forward_rows(model, tokens, S, T, stubs)
+    check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(fwd).all()),
+          "pixtral: non-finite logits")
+    rec["bf16_max_abs_err"] = float((dec - fwd).abs().max())
+    rec["bf16_top1_agreement"] = float(
+        (dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    print(f"pixtral decode bf16 at 40 blocks against the forward "
+          f"(reported): max |logit difference| {rec['bf16_max_abs_err']:.4g}"
+          f", top-1 agreement {rec['bf16_top1_agreement']:.4f}")
+    del model, dec, fwd, stubs
+    torch.cuda.empty_cache()
+    Bc = DECODE_CHECK[0]
+    rec.update(decode_checks(cfg, args.seed, DECODE_CUT, DECODE_CHECK, {
+        "frontend_emb": _stub(args.seed + 6, Bc, P, cfg.d_model,
+                              torch.float32)}))
+    torch.cuda.empty_cache()
+    return {"patches": P, "decode": rec}
+
+
+def frontends_path(args, captured):
+    """whisper-medium, then pixtral-12b, each model freed before the
+    next."""
+    import torch
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"whisper-medium": whisper_run(args, captured)}
+    print(f"phase frontends whisper: {time.perf_counter() - t0:.1f} s")
+    out["pixtral-12b"] = pixtral_run(args, captured)
+    out["seconds"] = time.perf_counter() - t0
+    out["path_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase frontends: {out['seconds']:.1f} s; peak device memory "
+          f"{out['path_peak_gib']:.2f} GiB with the {held / 2**30:.2f} GiB "
+          f"earlier paths hold")
+    return out
+
+
+def new_family_flash(captured):
+    """The flash forward at each new path's first inputs of each shape
+    family (held against its plain version, beside
+    ``scaled_dot_product_attention`` and its bound) and the gradient at
+    the training inputs: the records' ``hybrid`` and ``frontends``
+    keys."""
+    import torch
+    fwd, bwd = {}, {}
+    picks = {"recurrentgemma-2b local": "hybrid 2048x2048 causal",
+             "whisper-medium encoder": "whisper 1500x1500",
+             "whisper-medium cross": f"whisper {WHISPER_DECODE[1]}x1500",
+             "whisper-medium cross decode": "whisper 1x1500",
+             "pixtral-12b prefill": "pixtral 2048x2048 causal"}
+    for name, key in picks.items():
+        (q, k, v), kw = captured.pop(key)
+        rec = flash_measure(q, k, v, kw.get("causal", True),
+                            f"the {name} inputs")
+        rec.update(shape=list(q.shape), kv_shape=list(k.shape),
+                   causal=kw.get("causal", True))
+        fwd[name] = rec
+        del q, k, v
+        torch.cuda.empty_cache()
+    for k in [k for k in captured if k.split()[0] in ("hybrid", "whisper",
+                                                      "pixtral")]:
+        captured.pop(k)
+    for name, key in (("recurrentgemma-2b train", "flash_attention_bwd hybrid"),
+                      ("whisper-medium grad step",
+                       "flash_attention_bwd whisper")):
+        a, kw = captured.pop(key)
+        bwd[name] = flash_bwd_measure(a, kw, f"the {name} inputs")
+        bwd[name].update(shape=list(a[0].shape), kv_shape=list(a[1].shape),
+                         causal=kw.get("causal", True))
+        del a
+        torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3588,6 +4390,30 @@ def main() -> int:
             for arch in MOE_WIDTHS for what in ("train", "decode")
             if moe[arch][what]["launches"][k]}
     print("moe: " + json.dumps(moe))
+    hybrid = hybrid_path(args, captured)
+    print("hybrid: " + json.dumps(hybrid))
+    torch.cuda.empty_cache()
+    frontends = frontends_path(args, captured)
+    print("frontends: " + json.dumps(frontends))
+    torch.cuda.empty_cache()
+    fwd, bwd = new_family_flash(captured)
+    w, px = frontends["whisper-medium"], frontends["pixtral-12b"]
+    launches = {
+        "flash_attention": {
+            "recurrentgemma-2b forward":
+                hybrid["forward"]["launches"]["flash_attention"],
+            "whisper-medium encode": w["encode"]["launches"],
+            "whisper-medium prefill and decode":
+                w["decode"]["launches"]["flash_attention"],
+            "pixtral-12b prefill":
+                px["decode"]["launches"]["flash_attention"]},
+        "flash_attention_bwd": {}}
+    for k in launches:
+        launches[k]["recurrentgemma-2b train"] = hybrid["train"]["launches"][k]
+        launches[k]["whisper-medium grad step"] = w["grad_step"]["launches"][k]
+    for k, got in (("flash_attention", fwd), ("flash_attention_bwd", bwd)):
+        records[k]["new_families"] = got
+        records[k]["new_family_launches"] = launches[k]
     print(f"total {time.perf_counter() - t_start:.0f} s")
     records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
                                           own_launches)

@@ -1,11 +1,11 @@
-"""Architecture configs of the zoo (``--arch <id>``), as far as ported.
+"""Architecture configs of the zoo (``--arch <id>``), all ten ported.
 
-The registry keeps the reference's ids and aliases.  The dense attention
+The registry keeps the reference's ids and aliases: the dense attention
 archs (gemma-7b, codeqwen1.5-7b, phi3-mini-3.8b, mistral-nemo-12b), the
 MoE archs (granite-moe-1b-a400m; deepseek-v2-lite-16b, MLA and shared
-experts) and the attention-free mamba2-130m have their configs here; an
-arch whose blocks are not ported yet raises ``NotImplementedError``
-naming the ROADMAP item that brings them.
+experts), the attention-free mamba2-130m, the RG-LRU hybrid with local
+attention (recurrentgemma-2b), the encoder-decoder with an audio stub
+(whisper-medium) and the VLM with a vision stub (pixtral-12b).
 """
 from __future__ import annotations
 
@@ -32,13 +32,6 @@ _ALIASES.update({
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 })
 
-# arch -> the ROADMAP item (Queue 1, item 11) that ports its blocks
-_NOT_PORTED = {
-    "recurrentgemma_2b": "11.4b (RG-LRU and local attention)",
-    "whisper_medium": "11.5 (the whisper audio frontend and encoder)",
-    "pixtral_12b": "11.5 (the pixtral vision frontend)",
-}
-
 
 def get_config(name: str, reduced: bool = False):
     """Load an architecture config by id (dash or underscore form).
@@ -48,9 +41,5 @@ def get_config(name: str, reduced: bool = False):
     mod_name = _ALIASES.get(name, name).replace("-", "_").replace(".", "_")
     if mod_name not in ARCHS:
         raise ValueError(f"unknown arch {name!r}; known: {ARCHS}")
-    if mod_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: its blocks are not ported to repro_torch yet "
-            f"(ROADMAP Queue 1 item {_NOT_PORTED[mod_name]})")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.reduced_config() if reduced else mod.config()

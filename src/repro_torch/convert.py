@@ -76,9 +76,16 @@ def model_params_from_arrays(tree: dict, cfg: ModelConfig, device=None
     has shared experts); an MLA block's ``attn`` holds ``w_dkv``,
     ``w_kpe``, ``w_uk``, ``w_uv``, ``wq`` and ``wo``; an SSM block
     ``norm_mix`` and ``ssm`` (``w_in``, ``conv/{w, b}``, ``a_log``,
-    ``dt_bias``, ``d_skip``, ``norm_scale``, ``w_out``) and no MLP.
-    Leaves go through float32 and round to each parameter's dtype.
-    ``device`` is ``cuda`` unless given."""
+    ``dt_bias``, ``d_skip``, ``norm_scale``, ``w_out``) and no MLP; an
+    RG-LRU block ``rglru`` (``w_x``, ``w_gate_out``, ``conv/{w, b}``,
+    ``w_input_gate``, ``w_rec_gate``, ``lam``, ``w_out``) with the norms
+    and MLP; a decoder block of an encoder-decoder ``norm_cross`` and
+    ``cross`` (``wq``, ``wk``, ``wv``, ``wo``) besides.  The encoder is
+    ``tree["encoder"]``: ``segment/b0`` (an ATTN block, every leaf
+    stacked over ``encoder_layers``) and ``norm``.  Leaves go through
+    float32 and round to each parameter's dtype (an RG-LRU's ``lam``
+    stays float32 in a bf16 model).  ``device`` is ``cuda`` unless
+    given."""
     model = Transformer(cfg, device)
     load_param_tree(model, _tensors(tree))
     return model
@@ -96,8 +103,8 @@ def cache_from_arrays(tree: list, cfg: ModelConfig, device=None) -> list:
     """The reference's ``init_cache`` pytree, as numpy arrays (filled or
     not), -> the port's cache on ``device`` (``cuda`` unless given): the
     same layout (``models.init_cache``: K/V, MLA's latent ckv/kpe, SSM
-    states), every leaf rounded to its dtype.  Batch and Smax are read
-    from the arrays."""
+    and RG-LRU states, the cross-attention's xk/xv), every leaf rounded
+    to its dtype.  Batch and Smax are read from the arrays."""
     blocks = [b for seg in tree for b in seg.values()]
     batch = next(iter(blocks[0].values())).shape[1]
     # Smax: axis 3 of K (R, B, Hkv, Smax, hd), axis 2 of MLA's latent ckv

@@ -1,21 +1,26 @@
 """End-to-end training driver (the reference's ``repro.launch.train``):
 token pipeline -> train step -> AdamW -> checkpoint/restart, on one
-device, for every ported arch (the dense and MoE families and mamba2).
-Examples (CPU, reduced configs):
+device, for every arch that trains on tokens alone (all but the
+encoder-decoder whisper-medium, whose ``loss_fn`` needs its encoder's
+frames and raises ``ValueError`` without them, as the token batches
+here have none).  Examples (CPU, reduced configs):
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch mamba2-130m --reduced --steps 30 --fail-at 15
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch gemma-7b --reduced --steps 30 --fail-at 15
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch recurrentgemma-2b --reduced --steps 30 --fail-at 15
 
 The training state is the reference's: ``(params, OptState)`` with the
 parameters in the reference's pytree layout (``models.param_tree``), so a
 checkpoint has the reference's leaf paths.  Each step copies the state's
 parameters into the model, takes the loss and its gradient (on the card
-the flash-attention or SSD forward and gradient kernels), and applies
-AdamW.  ``--layers`` cuts a config to its first N blocks at its
-published width, across its segments (the reference trains the config
-as it is; a model too deep for one card's memory trains cut).
+the flash-attention or SSD forward and gradient kernels; the RG-LRU
+through autograd of its plain scan), and applies AdamW.  ``--layers``
+cuts a config to its first N blocks at its published width, across its
+segments (the reference trains the config as it is; a model too deep
+for one card's memory trains cut).
 The run is deterministic: PyTorch's deterministic algorithms are on for
 its length (the embedding gradient's scatter-add is otherwise a float
 atomic on the card), so a replay after an injected failure repeats the

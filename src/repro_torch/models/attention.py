@@ -1,25 +1,29 @@
 """GQA/MQA attention and DeepSeek's multi-head latent attention (MLA),
 over the full sequence or through a cache.
 
-Score paths, chosen by shape as the reference chooses them:
+Score paths, chosen by shape:
   * the flash kernel (``kernels/ops.flash_attention`` through
-    ``models/flash_xla.py``): full-sequence attention with no window and
-    no query offset -- training, the embedder, and the prefill of a
-    prompt at position 0; its plain version on the CPU, differentiable
-    through the gradient kernel;
+    ``models/flash_xla.py``): attention with no query offset and no
+    window, or a window that masks nothing (every row's keys within
+    it) -- training, the embedder, the encoder, cross-attention and the
+    prefill of a prompt at position 0; its plain version on the CPU,
+    differentiable through the gradient kernel;
   * ``_einsum_attn``: exact scores for one query row or up to
     ``_EINSUM_MAX_S`` keys, with a query offset and a window;
   * ``_chunked_attn``: online softmax over ``CHUNK``-key blocks past
     that, so live memory is O(Sq * CHUNK).
-The reference also picks by a ``use_kernel`` switch; the port has none.
+The reference also picks by a ``use_kernel`` switch, and sends any
+window to the plain paths; the port has no switch, and sends a window
+that masks nothing to the kernel.
 
 The KV cache of a block is ``{"k", "v"}``, each (B, Hkv, Smax, hd) in the
 compute dtype; ``attention`` writes the new positions into it in place.
 Decode (one token) merges the new token into the softmax as an explicit
 extra term (``_decode_attn_delta``).  The cache products keep K/V in
-their storage dtype and sum in float32 (``_f32_product``).  The window
-argument serves the sliding-window blocks, which come with ROADMAP
-Queue 1 item 11.4b.
+their storage dtype and sum in float32 (``_f32_product``).  A
+sliding-window block (``BlockKind.LOCAL_ATTN``) keeps the reference's
+cache, full K/V of Smax positions with the window applied as a mask,
+not a ring, so its cache carries across to and from the reference.
 
 An MLA block caches the latent ``{"ckv": (B, Smax, kv_lora), "kpe": (B,
 Smax, rope_dim)}`` instead (576 values a position at deepseek-v2-lite's
@@ -157,11 +161,16 @@ def _offset_is_zero(q_offset) -> bool:
 def sdpa(q, k, v, *, causal: bool = True, window=None, q_offset=0):
     """Scaled dot-product attention, q (B, H, Sq, hd) against k, v
     (B, Hkv, Sk, hd), q's first row at position ``q_offset`` (an int or a
-    0-d integer tensor).  The flash kernel where it computes the function
-    (no window, no offset, and Sq == Sk under the causal mask;
-    differentiable in q, k and v), else the exact einsum for one query
-    row or up to ``_EINSUM_MAX_S`` keys, else the chunked scan."""
+    0-d integer tensor); key j is seen by row i where j <= i (``causal``)
+    and i - j < ``window`` (None: no window).  The flash kernel where it
+    computes the function (no offset, no window or one that masks
+    nothing -- at offset 0 every i - j is at most Sq - 1 -- and Sq == Sk
+    under the causal mask; differentiable in q, k and v), else the exact
+    einsum for one query row or up to ``_EINSUM_MAX_S`` keys, else the
+    chunked scan."""
     Sq, Sk = q.shape[2], k.shape[2]
+    if _offset_is_zero(q_offset) and window is not None and Sq - 1 < window:
+        window = None                     # the window masks nothing
     if window is None and _offset_is_zero(q_offset) and (
             Sq == Sk or not causal):
         return flash_attention_xla(q, k, v, causal)
@@ -171,11 +180,14 @@ def sdpa(q, k, v, *, causal: bool = True, window=None, q_offset=0):
 
 
 class Attention(nn.Module):
-    """q/k/v projections, RoPE, attention and the output projection."""
+    """q/k/v projections, RoPE, attention and the output projection:
+    causal or not (an encoder), over all keys or the last ``window``
+    positions (a sliding-window block)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, *, window=None,
+                 causal: bool = True):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.window, self.causal = cfg, window, causal
         d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
         dt = cfg.pdtype
         self.wq = param(d, H * hd, dtype=dt, device=device)
@@ -189,12 +201,15 @@ class Attention(nn.Module):
             he_init_(w, generator)
 
     def forward(self, x, *, pos0=0, cache=None):
-        return attention(self, self.cfg, x, pos0=pos0, cache=cache)
+        return attention(self, self.cfg, x, pos0=pos0, cache=cache,
+                         window=self.window, causal=self.causal)
 
 
-def attention(p, cfg: ModelConfig, x, *, pos0=0, cache=None):
-    """x: (B, S, d) -> (B, S, d), causal, x's rows at positions pos0 ..
-    pos0 + S - 1 (pos0 an int or a 0-d integer tensor).
+def attention(p, cfg: ModelConfig, x, *, pos0=0, cache=None, window=None,
+              causal: bool = True):
+    """x: (B, S, d) -> (B, S, d), x's rows at positions pos0 .. pos0 + S
+    - 1 (pos0 an int or a 0-d integer tensor), each attending to the
+    keys ``sdpa``'s ``causal`` and ``window`` let it see.
 
     cache: None (the full sequence from position 0), or a block's
     ``{"k", "v"}`` (B, Hkv, Smax, hd), read and written in place at
@@ -214,15 +229,17 @@ def attention(p, cfg: ModelConfig, x, *, pos0=0, cache=None):
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     if cache is None:
-        out = sdpa(q, k, v, causal=True)
+        out = sdpa(q, k, v, causal=causal, window=window)
     elif S == 1:
         out = _decode_attn_delta(q, cache["k"], cache["v"], k, v, pos0,
-                                 None)
+                                 window)
         _write(cache, k, v, pos)
     else:
         _write(cache, k, v, pos)
-        out = (sdpa(q, k, v, causal=True) if _offset_is_zero(pos0) else
-               sdpa(q, cache["k"], cache["v"], causal=True, q_offset=pos0))
+        out = (sdpa(q, k, v, causal=causal, window=window)
+               if _offset_is_zero(pos0) else
+               sdpa(q, cache["k"], cache["v"], causal=causal, window=window,
+                    q_offset=pos0))
     return out.transpose(1, 2).reshape(B, S, H * hd) @ p.wo
 
 

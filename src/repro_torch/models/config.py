@@ -2,10 +2,9 @@
 
 One ModelConfig describes any of the zoo's families through a block
 pattern: layers are grouped into repeated *segments* of a unit of block
-kinds.  The port runs the dense attention family (``BlockKind.ATTN``)
-and the Mamba-2 family (``BlockKind.SSM``); the other kinds are
-described here so that every config of the zoo can be read, and
-``models.transformer`` refuses what it cannot run yet.
+kinds.  The port runs every kind -- global and sliding-window attention,
+MLA, the Mamba-2 SSD block and the RG-LRU block, with the gated or the
+MoE MLP -- and the encoder-decoder and modality-frontend stubs.
 
 ``pdtype``/``cdtype`` are torch dtypes.  The port imports nothing of the
 reference package.
@@ -138,7 +137,7 @@ def dense_stack(n_layers: int, kind: BlockKind = BlockKind.ATTN,
 
 
 def count_params(cfg: ModelConfig) -> int:
-    """Parameter count of a ported config (used for 6ND model FLOPs and
+    """Parameter count of a config (used for 6ND model FLOPs and
     reports), counted from the port's modules built on the meta device:
     shapes only, nothing is allocated."""
     from repro_torch.models.transformer import Transformer  # no cycle

@@ -1674,13 +1674,16 @@ def test_simulator_hashes_launch_the_kernel():
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["gemma-7b", "mistral-nemo-12b",
                                   "mamba2-130m", "granite-moe-1b-a400m",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "recurrentgemma-2b",
+                                  "whisper-medium", "pixtral-12b"])
 def test_reduced_decode_on_the_card_equals_the_cpu(arch):
-    """Reduced configs (float32): a prompt of 31 tokens prefilled into a
-    cache of 36 positions and four decode steps on the card (a dense
-    prompt through the flash kernel) against the CPU: every step's logits
-    and every cache leaf within rtol = atol = 1e-4, the CPU tests' model
-    tolerance; the position an int and a 0-d tensor on the device."""
+    """Reduced configs (float32): a prompt prefilled into a cache and
+    four decode steps on the card (a dense prompt through the flash
+    kernel) against the CPU: every step's logits and every cache leaf
+    within rtol = atol = 1e-4, the CPU tests' model tolerance; the
+    position an int and a 0-d tensor on the device.  The prompt is 31
+    tokens (recurrentgemma's 70, past its window of 64; pixtral's after
+    16 stub patch rows; whisper's with 30 stub encoder frames)."""
     dev = _cuda()
     from repro_torch.configs import get_config
     from repro_torch.models import (Transformer, decode_step, init_cache,
@@ -1692,18 +1695,28 @@ def test_reduced_decode_on_the_card_equals_the_cpu(arch):
                       device="cpu")
     card = Transformer(cfg, dev)
     load_param_tree(card, param_tree(cpu))
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 35)))
+    S = 70 if cfg.rglru is not None else 31
+    P = cfg.frontend_tokens
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S + 4)))
+    stubs = {}
+    if P:
+        stubs["frontend_emb"] = torch.from_numpy(rng.standard_normal(
+            (2, P, cfg.d_model)).astype(np.float32))
+    if cfg.encoder_layers:
+        stubs["enc_frames"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_frames, cfg.d_model)).astype(np.float32))
     runs = []
     for model, d in ((cpu, "cpu"), (card, dev)):
         toks = tokens.to(d)
-        cache = init_cache(cfg, 2, 36, device=d)
-        logits, cache = prefill(model, toks[:, :31], cache)
+        cache = init_cache(cfg, 2, P + S + 5, device=d)
+        logits, cache = prefill(model, toks[:, :S], cache, **{
+            k: t.to(d) for k, t in stubs.items()})
         out = [logits]
-        for pos in range(31, 35):
+        for t in range(S, S + 4):
+            pos = P + t
             p = pos if pos % 2 else torch.tensor(pos, device=d)
-            logits, cache = decode_step(model, toks[:, pos:pos + 1], cache,
-                                        p)
+            logits, cache = decode_step(model, toks[:, t:t + 1], cache, p)
             out.append(logits)
         runs.append((torch.cat(out, 1).cpu(), leaves_with_paths(cache)))
     (lc, (paths, cc)), (lg, (_, cg)) = runs
@@ -1761,8 +1774,9 @@ def test_prefill_launches_the_flash_kernel_once_a_dense_block():
     assert kfa.flash_attention_cuda.launches - before == cfg.n_layers
     before = kfa.flash_attention_cuda.launches
     decode_step(model, tokens[:, 32:33], cache, 32)
-    from repro_torch.models.transformer import _blocks
-    _blocks(model, tokens[:, 33:40], pos0=33, cache=cache)
+    from repro_torch.models.transformer import _blocks, _inputs
+    _blocks(model, _inputs(model, tokens[:, 33:40], None, None)[0], pos0=33,
+            cache=cache)
     torch.cuda.synchronize()
     assert kfa.flash_attention_cuda.launches == before
 
@@ -1848,3 +1862,113 @@ def test_moe_gradient_launches_are_bitwise_alike_under_deterministic_mode():
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU hybrid, the encoder-decoder and the VLM
+# ---------------------------------------------------------------------------
+
+# (name, B, H, Hkv, Sq, Sk, dh, causal): recurrentgemma's local attention
+# with a vacuous window (MQA 10/1, heads of 256), whisper's encoder (16
+# heads of 64 over 1,500 frames, non-causal), its cross-attention at a
+# prompt and at decode (Sq != Sk, non-causal), pixtral's GQA 32/8 at
+# heads of 128 over patch rows and text; batch and length cut
+NEW_FLASH = [("local", 2, 10, 1, 512, 512, 256, True),
+             ("encoder", 2, 16, 16, 1500, 1500, 64, False),
+             ("cross", 2, 16, 16, 448, 1500, 64, False),
+             ("cross_decode", 2, 16, 16, 1, 1500, 64, False),
+             ("pixtral", 1, 32, 8, 1024, 1024, 128, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", NEW_FLASH, ids=[c[0] for c in NEW_FLASH])
+def test_flash_kernels_at_the_new_families_shapes(case):
+    """The flash forward (bf16, tensor cores) and its gradient against
+    their plain versions at each new path's shape family; the gradient
+    also bitwise on a second launch."""
+    dev = _cuda()
+    _, B, H, Hkv, Sq, Sk, dh, causal = case
+    a = _bwd_case(Sq + dh, B, H, Hkv, Sq, Sk, dh, torch.bfloat16, dev,
+                  causal)
+    q, k, v = a[:3]
+    before = dict(kfa.flash_attention_cuda.launches_by_design)
+    got = kfa.flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    after = kfa.flash_attention_cuda.launches_by_design
+    assert after["tensor_core"] == before["tensor_core"] + 1
+    _attn_close(got, ref.attention_ref(q, k, v, causal=causal))
+    before = dict(kfa.flash_attention_bwd_cuda.launches_by_design)
+    one = kfa.flash_attention_bwd_cuda(*a, causal=causal)
+    two = kfa.flash_attention_bwd_cuda(*a, causal=causal)
+    torch.cuda.synchronize()
+    after = kfa.flash_attention_bwd_cuda.launches_by_design
+    assert after["tensor_core"] == before["tensor_core"] + 2
+    for g1, g2 in zip(one, two):
+        assert torch.equal(g1, g2)
+    _bwd_close(one, ref.flash_attention_bwd_ref(*a, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk,offset,window", [
+    (64, 64, 0, 64),          # vacuous: the kernel
+    (300, 300, 0, 128),       # the window masks: einsum
+    (3, 2100, 2097, 128),     # an offset past the window: chunked
+    (1, 300, 299, 128)])      # decode's row
+def test_windowed_sdpa_on_the_card_equals_the_cpu(dtype, Sq, Sk, offset,
+                                                  window):
+    """``sdpa`` with a window on the card (the flash kernel where the
+    window masks nothing, else the plain windowed paths, products over
+    the bf16 operands) against the CPU's, MQA at heads of 256, within the
+    flash tolerance (2e-5 float32, 0.05 bf16)."""
+    dev = _cuda()
+    from repro_torch.models import attention as attn
+    q, k, v = _attn(Sq + Sk, 2, 4, 1, Sq, Sk, 256, dtype, "cpu")
+    want = attn.sdpa(q, k, v, causal=True, window=window, q_offset=offset)
+    before = kfa.flash_attention_cuda.launches
+    got = attn.sdpa(q.to(dev), k.to(dev), v.to(dev), causal=True,
+                    window=window, q_offset=offset)
+    torch.cuda.synchronize()
+    launched = kfa.flash_attention_cuda.launches - before
+    assert launched == (1 if offset == 0 and Sq - 1 < window else 0)
+    _attn_close(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_rglru_block_bf16_on_the_card_equals_the_cpu():
+    """An RG-LRU block at recurrentgemma-2b's published width (d = w =
+    2,560) in bf16, lam float32, 4 x 300 tokens, with and without a
+    carried state: the card against the CPU (the same bf16 products and
+    float32 gates and scan), every output within 0.05 of the CPU's
+    largest |out|, the state's h within 1e-3 of its largest |h|."""
+    dev = _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+    cfg = get_config("recurrentgemma-2b")
+    cpu = rglru.RGLRU(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for module in cpu.modules():            # the conv resets itself
+        module.reset_parameters(gen)
+    card = rglru.RGLRU(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    assert card.lam.dtype == torch.float32
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 300, cfg.d_model), generator=g).bfloat16()
+    st = rglru.init_rglru_state(cfg, 4, "cpu")
+    st["h"].normal_(generator=g)
+    for state in (None, st):
+        with torch.no_grad():
+            want = rglru.rglru_block(cpu, cfg, x, state=state)
+            got = rglru.rglru_block(card, cfg, x.to(dev), state=None if
+                                    state is None else {
+                                        k: t.to(dev) for k, t in state.items()})
+        torch.cuda.synchronize()
+        if state is None:
+            want, got = (want, None), (got, None)
+        scale = float(want[0].float().abs().max())
+        np.testing.assert_allclose(got[0].float().cpu(), want[0].float(),
+                                   rtol=0.05, atol=0.05 * scale)
+        if state is not None:
+            hs = float(want[1]["h"].abs().max())
+            np.testing.assert_allclose(got[1]["h"].cpu(), want[1]["h"],
+                                       rtol=1e-3, atol=1e-3 * hs)

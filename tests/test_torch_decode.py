@@ -8,7 +8,9 @@ across through ``convert.model_params_from_arrays`` and caches through
 ``convert.cache_from_arrays`` / ``cache_arrays``.  The inputs are the
 reference's own ``test_prefill_then_decode_matches_forward``
 (``tests/test_arch_smoke.py``): B = 2, a prompt of 31 tokens, Smax = 36,
-then four decode steps.  Tolerances:
+then four decode steps; recurrentgemma's prompt is 70 tokens, past its
+window of 64, and pixtral's 16 patch rows come before its prompt (the
+stub embeddings, and whisper's encoder frames, drawn from a seed).  Tolerances:
   * the port against the reference, float32: rtol = atol = 1e-4 (the
     model tolerance of ``test_torch_models.py``): the prefill's last
     logits, every cache leaf after the prefill and after each step, each
@@ -46,10 +48,36 @@ DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
 ATTN_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
             torch.bfloat16: dict(rtol=0.05, atol=0.05)}
 # GeGLU, tied head, softcap; SwiGLU, GQA, untied head; the SSM family;
-# MoE with GQA; MLA's latent cache with a dense block and then MoE
+# MoE with GQA; MLA's latent cache with a dense block and then MoE; the
+# RG-LRU with sliding-window attention; the encoder-decoder's cross
+# cache; patch rows before the prompt
 ARCHS = ["gemma-7b", "mistral-nemo-12b", "mamba2-130m",
-         "granite-moe-1b-a400m", "deepseek-v2-lite-16b"]
-B, PROMPT, STEPS, SMAX = 2, 31, 4, 36
+         "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+         "recurrentgemma-2b", "whisper-medium", "pixtral-12b"]
+B, STEPS = 2, 4
+# arch -> (prompt tokens, Smax); the rest (31, 36)
+PROMPTS = {"recurrentgemma-2b": (70, 76), "pixtral-12b": (31, 52)}
+
+
+def _prompt(arch):
+    return PROMPTS.get(arch, (31, 36))
+
+
+def _stubs(jcfg, seed):
+    """The stub frontends' inputs as numpy: {"frontend_emb": (B, P, d)}
+    for a VLM, {"enc_frames": (B, F, d)} for an encoder-decoder."""
+    out = {}
+    if jcfg.frontend_tokens:
+        out["frontend_emb"] = _np(seed, B, jcfg.frontend_tokens,
+                                  jcfg.d_model)
+    if jcfg.encoder_layers:
+        out["enc_frames"] = _np(seed + 1, B, jcfg.encoder_frames,
+                                jcfg.d_model)
+    return out
+
+
+def _torch_stubs(stubs):
+    return {k: torch.from_numpy(a) for k, a in stubs.items()}
 
 
 def _np(seed, *shape, scale=1.0):
@@ -77,44 +105,55 @@ def _same_tree(got, want, tol, what):
 
 @pytest.fixture(scope="module")
 def runs():
-    """{arch: (port model, tokens, the reference's prefill logits and
-    cache, its step logits and caches, its jitted decode step)}."""
+    """{arch: (port model, tokens, the stub inputs, the reference's
+    prefill logits and cache, its step logits and caches, its jitted
+    decode step)}.  Token t of a decode step sits at position P + t, P
+    the patch rows."""
     out = {}
     for i, arch in enumerate(ARCHS):
         jcfg = jget_config(arch, reduced=True)
+        prompt, smax = _prompt(arch)
         jp = jax.jit(jinit_params, static_argnums=1)(jax.random.PRNGKey(i),
                                                      jcfg)
         model = convert.model_params_from_arrays(
             jax.tree.map(np.asarray, jp), get_config(arch, reduced=True),
             device="cpu")
         tokens = np.random.default_rng(10 + i).integers(
-            0, jcfg.vocab, (B, PROMPT + STEPS)).astype(np.int32)
-        jprefill = jax.jit(lambda p, t, c, cfg=jcfg: jtf.prefill(p, cfg, t,
-                                                                   c))
+            0, jcfg.vocab, (B, prompt + STEPS)).astype(np.int32)
+        stubs = _stubs(jcfg, 20 + i)
+        jprefill = jax.jit(lambda p, t, c, kw, cfg=jcfg: jtf.prefill(
+            p, cfg, t, c, **kw))
         jdecode = jax.jit(lambda p, t, c, pos, cfg=jcfg: jtf.decode_step(
             p, cfg, t, c, pos))
-        last, cache = jprefill(jp, jnp.asarray(tokens[:, :PROMPT]),
-                               jtf.init_cache(jcfg, B, SMAX))
+        last, cache = jprefill(jp, jnp.asarray(tokens[:, :prompt]),
+                               jtf.init_cache(jcfg, B, smax),
+                               {k: jnp.asarray(a) for k, a in stubs.items()})
         ref = {"prefill": (np.asarray(last), jax.tree.map(np.asarray,
                                                           cache))}
         steps = []
         for t in range(STEPS):
-            pos = PROMPT + t
+            pos = prompt + t
             logits, cache = jdecode(jp, jnp.asarray(tokens[:, pos:pos + 1]),
-                                    cache, jnp.int32(pos))
+                                    cache, jnp.int32(_at(jcfg, pos)))
             steps.append((np.asarray(logits), jax.tree.map(np.asarray,
                                                            cache)))
         ref["steps"] = steps
-        out[arch] = (model, tokens, ref,
+        out[arch] = (model, tokens, stubs, ref,
                      lambda c, t, pos, jp=jp, f=jdecode: f(
                          jp, jnp.asarray(t), c, jnp.int32(pos)))
     return out
 
 
-def _port_prefill(model, tokens):
-    cache = init_cache(model.cfg, B, SMAX, device="cpu")
-    last, cache = prefill(model, torch.from_numpy(tokens[:, :PROMPT]).long(),
-                          cache)
+def _at(cfg, t):
+    """The position of token t: after the patch rows, where there are."""
+    return cfg.frontend_tokens + t
+
+
+def _port_prefill(model, tokens, stubs):
+    prompt, smax = _prompt(model.cfg.name.removesuffix("-reduced"))
+    cache = init_cache(model.cfg, B, smax, device="cpu")
+    last, cache = prefill(model, torch.from_numpy(tokens[:, :prompt]).long(),
+                          cache, **_torch_stubs(stubs))
     return last, cache
 
 
@@ -124,8 +163,8 @@ def _token(tokens, pos):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_matches_reference(runs, arch):
-    model, tokens, ref, _ = runs[arch]
-    last, cache = _port_prefill(model, tokens)
+    model, tokens, stubs, ref, _ = runs[arch]
+    last, cache = _port_prefill(model, tokens, stubs)
     want_last, want_cache = ref["prefill"]
     assert last.shape == (B, 1, model.cfg.vocab_padded)
     _close(last.numpy(), want_last, MODEL_TOL, "prefill logits")
@@ -137,12 +176,13 @@ def test_prefill_matches_reference(runs, arch):
 def test_decode_steps_match_reference(runs, arch):
     """Each step's logits and the whole cache after it; the position is
     an int on even steps and a 0-d int32 tensor on odd ones."""
-    model, tokens, ref, _ = runs[arch]
-    _, cache = _port_prefill(model, tokens)
+    model, tokens, stubs, ref, _ = runs[arch]
+    prompt = _prompt(arch)[0]
+    _, cache = _port_prefill(model, tokens, stubs)
     for t, (want_logits, want_cache) in enumerate(ref["steps"]):
-        pos = PROMPT + t
+        pos = _at(model.cfg, prompt + t)
         logits, cache = decode_step(
-            model, _token(tokens, pos), cache,
+            model, _token(tokens, prompt + t), cache,
             pos if t % 2 == 0 else torch.tensor(pos, dtype=torch.int32))
         _close(logits.numpy(), want_logits, MODEL_TOL, f"step {t} logits")
         _same_tree(convert.cache_arrays(cache), want_cache, MODEL_TOL,
@@ -152,28 +192,31 @@ def test_decode_steps_match_reference(runs, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_matches_the_ports_forward(runs, arch):
     """The prefill's last logits and every decode step's are the
-    full-sequence forward's at the same positions (the caches are exact,
+    full-sequence forward's at the same tokens (the caches are exact,
     not approximations)."""
-    model, tokens, _, _ = runs[arch]
-    full = forward(model, torch.from_numpy(tokens).long())[0].numpy()
-    last, cache = _port_prefill(model, tokens)
-    _close(last[:, 0].numpy(), full[:, PROMPT - 1], DECODE_TOL, "prefill")
-    for t in range(STEPS):
-        pos = PROMPT + t
-        logits, cache = decode_step(model, _token(tokens, pos), cache, pos)
-        _close(logits[:, 0].numpy(), full[:, pos], DECODE_TOL, f"step {t}")
+    model, tokens, stubs, _, _ = runs[arch]
+    prompt = _prompt(arch)[0]
+    full = forward(model, torch.from_numpy(tokens).long(),
+                   **_torch_stubs(stubs))[0].numpy()
+    last, cache = _port_prefill(model, tokens, stubs)
+    _close(last[:, 0].numpy(), full[:, prompt - 1], DECODE_TOL, "prefill")
+    for t in range(prompt, prompt + STEPS):
+        logits, cache = decode_step(model, _token(tokens, t), cache,
+                                    _at(model.cfg, t))
+        _close(logits[:, 0].numpy(), full[:, t], DECODE_TOL, f"token {t}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reference_cache_decodes_on_the_port(runs, arch):
     """The reference's cache after its prefill, carried into the port,
     decodes to the reference's own step logits."""
-    model, tokens, ref, _ = runs[arch]
+    model, tokens, _, ref, _ = runs[arch]
+    prompt = _prompt(arch)[0]
     cache = convert.cache_from_arrays(ref["prefill"][1], model.cfg,
                                       device="cpu")
     for t, (want_logits, _) in enumerate(ref["steps"]):
-        pos = PROMPT + t
-        logits, cache = decode_step(model, _token(tokens, pos), cache, pos)
+        logits, cache = decode_step(model, _token(tokens, prompt + t), cache,
+                                    _at(model.cfg, prompt + t))
         _close(logits.numpy(), want_logits, MODEL_TOL, f"step {t}")
 
 
@@ -181,19 +224,21 @@ def test_reference_cache_decodes_on_the_port(runs, arch):
 def test_port_cache_decodes_on_the_reference(runs, arch):
     """The port's cache after its prefill, carried into the reference,
     decodes there to the port's own step logits."""
-    model, tokens, _, jdecode = runs[arch]
-    _, cache = _port_prefill(model, tokens)
+    model, tokens, stubs, _, jdecode = runs[arch]
+    prompt = _prompt(arch)[0]
+    _, cache = _port_prefill(model, tokens, stubs)
     jcache = jax.tree.map(jnp.asarray, convert.cache_arrays(cache))
-    for t in range(STEPS):
-        pos = PROMPT + t
-        logits, cache = decode_step(model, _token(tokens, pos), cache, pos)
-        jlogits, jcache = jdecode(jcache, tokens[:, pos:pos + 1], pos)
-        _close(jlogits, logits.numpy(), MODEL_TOL, f"step {t}")
+    for t in range(prompt, prompt + STEPS):
+        pos = _at(model.cfg, t)
+        logits, cache = decode_step(model, _token(tokens, t), cache, pos)
+        jlogits, jcache = jdecode(jcache, tokens[:, t:t + 1], pos)
+        _close(jlogits, logits.numpy(), MODEL_TOL, f"token {t}")
 
 
 @pytest.mark.parametrize("arch", ["gemma-7b", "mamba2-130m", "phi3-mini-3.8b",
                                   "granite-moe-1b-a400m",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b", "recurrentgemma-2b",
+                                  "whisper-medium", "pixtral-12b"])
 def test_init_cache_is_the_references_layout(arch):
     """Leaf paths, shapes and dtypes of the published configs' caches
     (the port's on the meta device, the reference's by eval_shape: no
@@ -276,6 +321,21 @@ def test_decode_attn_delta_matches_reference(dtype, window, pos0):
     assert torch.equal(tensor_pos, got)
 
 
+def _dispatched(monkeypatch, Sq, Sk, offset, causal, window=None):
+    """The path ``sdpa`` takes, and the arguments it passes it."""
+    taken = []
+    for name, tag in (("flash_attention_xla", "kernel"),
+                      ("_einsum_attn", "einsum"),
+                      ("_chunked_attn", "chunked")):
+        monkeypatch.setattr(attn, name,
+                            lambda *a, tag=tag: taken.append((tag, a)))
+    q, k = torch.zeros(1, 2, Sq, 8), torch.zeros(1, 2, Sk, 8)
+    offset = torch.tensor(0) if offset == "tensor" else offset
+    attn.sdpa(q, k, k, causal=causal, window=window, q_offset=offset)
+    assert len(taken) == 1
+    return taken[0]
+
+
 @pytest.mark.parametrize("Sq,Sk,offset,causal,path", [
     (16, 16, 0, True, "kernel"),
     (8, 16, 0, False, "kernel"),
@@ -286,16 +346,41 @@ def test_decode_attn_delta_matches_reference(dtype, window, pos0):
     (16, 16, "tensor", True, "einsum"),  # a tensor offset is not read
 ])
 def test_sdpa_dispatch(monkeypatch, Sq, Sk, offset, causal, path):
-    taken = []
-    for name, tag in (("flash_attention_xla", "kernel"),
-                      ("_einsum_attn", "einsum"),
-                      ("_chunked_attn", "chunked")):
-        monkeypatch.setattr(attn, name,
-                            lambda *a, tag=tag: taken.append(tag))
-    q, k = torch.zeros(1, 2, Sq, 8), torch.zeros(1, 2, Sk, 8)
-    offset = torch.tensor(0) if offset == "tensor" else offset
-    attn.sdpa(q, k, k, causal=causal, q_offset=offset)
-    assert taken == [path]
+    assert _dispatched(monkeypatch, Sq, Sk, offset, causal)[0] == path
+
+
+@pytest.mark.parametrize("Sq,Sk,offset,causal,window,path", [
+    # a window masks nothing where every row's keys are within it
+    (16, 16, 0, True, 16, "kernel"),
+    (2048, 2048, 0, True, 2048, "kernel"),
+    (8, 40, 0, False, 8, "kernel"),
+    (17, 17, 0, True, 16, "einsum"),
+    (4096, 4096, 0, True, 2048, "chunked"),
+    (4, 16, 12, True, 64, "einsum"),    # an offset: the plain paths
+    (1, 40, 39, True, 64, "einsum"),
+])
+def test_sdpa_dispatch_with_a_window(monkeypatch, Sq, Sk, offset, causal,
+                                     window, path):
+    """A window that masks nothing (offset 0, Sq - 1 < window) takes the
+    flash kernel as if there were none; the plain paths keep it."""
+    tag, args = _dispatched(monkeypatch, Sq, Sk, offset, causal, window)
+    assert tag == path
+    if path != "kernel":
+        assert args[4] == window
+
+
+def test_vacuous_window_computes_the_windowed_function():
+    """Where the window masks nothing, the flash path's output is the
+    windowed einsum's (the reference's path for a window), float32; one
+    row past it, the window changes the output."""
+    (q, k, v), _ = _qkv(95, 24, 24, torch.float32)
+    for window in (24, 100):
+        _close(attn.sdpa(q, k, v, causal=True, window=window).numpy(),
+               attn._einsum_attn(q, k, v, True, window, 0).numpy(),
+               ATTN_TOL[torch.float32], f"window {window}")
+    past = attn.sdpa(q, k, v, causal=True, window=23)
+    assert not torch.allclose(past, attn.sdpa(q, k, v, causal=True),
+                              **ATTN_TOL[torch.float32])
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +389,7 @@ def test_sdpa_dispatch(monkeypatch, Sq, Sk, offset, causal, path):
 
 def _port_config(jcfg):
     """The reference's config rebuilt from the port's config classes,
-    field by field (the port's registry refuses the unported archs)."""
+    field by field."""
     def conv(v):
         if isinstance(v, enum.Enum):
             return pconfig.BlockKind(v.value)
@@ -326,10 +411,25 @@ def test_is_subquadratic_matches_reference(arch):
             jcfg.is_subquadratic()
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("recurrentgemma-2b", "11.4b"), ("whisper-medium", "11.5"),
-    ("pixtral-12b", "11.5")])
-def test_init_cache_refuses_unported_configs(arch, item):
-    cfg = _port_config(jget_config(arch, reduced=True))
-    with pytest.raises(NotImplementedError, match=f"item {item} "):
-        init_cache(cfg, 1, 8, device="cpu")
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "whisper-medium",
+                                  "pixtral-12b"])
+def test_new_family_configs_equal_the_references(arch):
+    """The port's config of the RG-LRU hybrid, the encoder-decoder and
+    the VLM (the archs whose caches the port once refused) is the
+    reference's, field by field, published and reduced, and its reduced
+    cache is ``jax.eval_shape`` of the reference's, leaf for leaf."""
+    for reduced in (False, True):
+        jcfg = jget_config(arch, reduced=reduced)
+        assert get_config(arch, reduced=reduced) == _port_config(jcfg)
+    cfg, jcfg = get_config(arch, reduced=True), jget_config(arch, reduced=True)
+    want = jax.eval_shape(lambda: jtf.init_cache(jcfg, 2, 24))
+    got = init_cache(cfg, 2, 24, device="cpu")
+    assert [sorted(g) for g in got] == [sorted(w) for w in want]
+    for g, w in zip(got, want):
+        for name in g:
+            assert sorted(g[name]) == sorted(w[name])
+            for key, t in g[name].items():
+                assert tuple(t.shape) == w[name][key].shape
+                assert str(t.dtype).removeprefix("torch.") == \
+                    str(w[name][key].dtype)
+                assert not t.any()

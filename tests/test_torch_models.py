@@ -225,7 +225,12 @@ def test_gemma_7b_config_is_the_published_width():
             assert mine.vocab_padded == theirs.vocab_padded
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + ["mamba2-130m"])
+NEW_ARCHS = {"recurrentgemma-2b": 2_894_481_920,
+             "whisper-medium": 959_571_968, "pixtral-12b": 12_247_782_400}
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS + ["mamba2-130m"]
+                         + list(NEW_ARCHS))
 def test_count_params_equals_the_reference(arch):
     """``count_params`` (the port's modules on the meta device: nothing
     allocated) is the reference's count (``jax.eval_shape`` of its
@@ -237,14 +242,39 @@ def test_count_params_equals_the_reference(arch):
             jcount_params(jget_config(arch, reduced=reduced))
     if arch == "gemma-7b":
         assert count_params(get_config(arch)) == 8_537_680_896
+    if arch in NEW_ARCHS:
+        assert count_params(get_config(arch)) == NEW_ARCHS[arch]
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("recurrentgemma-2b", "11.4b"), ("whisper-medium", "11.5"),
-    ("pixtral-12b", "11.5")])
-def test_unported_archs_name_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        get_config(arch)
+@pytest.mark.parametrize("arch", list(NEW_ARCHS))
+def test_new_family_archs_load_at_their_published_width(arch):
+    """The archs the registry once refused load: the reference's ids and
+    underscore forms, the published and reduced configs its own, and a
+    model of the published config builds on the meta device with the
+    reference's leaf paths (an RG-LRU's ``lam`` float32 in the bf16
+    model)."""
+    from repro.models import count_params as jcount_params
+    from repro_torch.models import Transformer, param_tree
+    cfg = get_config(arch)
+    assert cfg == get_config(arch.replace("-", "_"))
+    theirs = jget_config(arch)
+    assert (cfg.name, cfg.n_layers, cfg.d_model, cfg.hd, cfg.vocab_padded,
+            cfg.encoder_layers, cfg.frontend_tokens) == (
+        theirs.name, theirs.n_layers, theirs.d_model, theirs.hd,
+        theirs.vocab_padded, theirs.encoder_layers, theirs.frontend_tokens)
+    assert cfg.pdtype == cfg.cdtype == torch.bfloat16
+    model = Transformer(cfg, device="meta")
+    want = jax.eval_shape(lambda: jinit_params(jax.random.PRNGKey(0),
+                                               theirs))
+    got = param_tree(model)
+    flat = dict(jax.tree_util.tree_flatten_with_path(got)[0])
+    wflat = dict(jax.tree_util.tree_flatten_with_path(want)[0])
+    assert sorted(map(str, flat)) == sorted(map(str, wflat))
+    for path, t in flat.items():
+        assert tuple(t.shape) == wflat[path].shape, path
+        assert str(t.dtype).removeprefix("torch.") == \
+            str(wflat[path].dtype), path
+    assert sum(t.numel() for t in flat.values()) == jcount_params(theirs)
 
 
 def test_init_params_draws_the_reference_distributions():
