@@ -173,11 +173,11 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                forward at 3 blocks on prompts past the window (float32
                within 2e-3, bf16 within rounding's reach); then training
                by ``launch/train.py`` cut to 12 blocks (8 x 1,024 tokens,
-               8 steps, a failure at step 4, bitwise the uninterrupted
+               6 steps, a failure at step 3, bitwise the uninterrupted
                run, the loss falling; step ms, tokens/s, model TFLOP/s,
                peak, a traced step) and float32 at 3 blocks, the card
                against the CPU;
-  frontends -- last, each model freed before the next: whisper-medium
+  frontends -- then, each model freed before the next: whisper-medium
                at 24 + 24 blocks (``encode`` of 8 x 1,500 stub frames, the
                flash kernel once an encoder block, non-causal; 8 prompts
                of 448 tokens prefilled with the cross cache filled and 32
@@ -194,6 +194,24 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                held against their plain versions and timed beside
                ``scaled_dot_product_attention`` (the records'
                ``new_families`` keys).
+  steps     -- last: the reference's cells (``launch/steps.py``) built by
+               ``steps.build_step`` and run on the card.  The dry run
+               (``python -m repro_torch.launch.dryrun --all`` and the
+               cut cells below, on the meta device) runs on the host
+               beside the kernel builds; its 40 cells are printed in one
+               line.  mamba2-130m decode_32k (B = 128, a cache of
+               32,768) and long_500k (B = 1, 524,288) and
+               recurrentgemma-2b long_500k as the reference has them,
+               each against ``decode_step`` called directly; gemma-7b
+               prefill_32k at 1 of its 32 sequences, in the decode path
+               on its 28-block weights, against ``prefill``; mamba2-130m
+               train_4k at one microbatch of the largest batch that the
+               dry run fits beside what is held, against
+               ``launch/train.make_step`` (loss, parameters, moments).
+               Each cell bitwise its hand-built path, its device memory
+               rise within STEPS_MEM_TOL of the dry run's prediction,
+               its kernel launches the dry run's, its ms (CUDA events)
+               beside the roofline's and its model TFLOP/s.
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers (forward and gradient) also count
@@ -215,12 +233,14 @@ anything.
 from __future__ import annotations
 
 import argparse
+import atexit
 import collections
 import concurrent.futures
 import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -230,12 +250,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# published H100 SXM peaks (NVIDIA data sheet): float32 outside the
-# tensor cores, bf16 on the tensor cores (dense), and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+# the train path's deterministic cuBLAS workspace: PyTorch reads it once,
+# at the first cuBLAS call, which an earlier path makes
+# (repro_torch.launch.train.CUBLAS_WORKSPACE_CONFIG); and the allocator's
+# expandable segments, which the train_dense path's AdamW step needs
+# (repro_torch.launch.train.CUDA_ALLOC_CONF): both before torch loads
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+# the H100's peaks (float32 outside the tensor cores, bf16 on them,
+# HBM3), bound_of and the model-zoo kernels' (FLOPs, bytes)
+from repro_torch.launch import hlo_analysis as ha  # noqa: E402
 IMAX = 2 ** 31 - 1
 BUCKETS = 4        # query buckets served per phase
 REPS = 20          # timed kernel runs
@@ -354,13 +378,14 @@ MOE_OPS = ("sort", "searchsorted", "index_put", "index_select", "index_add",
 # the forward at HYBRID_CUT blocks (one RG-LRU, RG-LRU, local unit) on
 # HYBRID_CHECK, prompts past the window; training cut to HYBRID_TRAIN =
 # (blocks, batch, tokens), HYBRID_STEPS steps with a failure at
-# HYBRID_FAIL_AT, a checkpoint every HYBRID_CKPT_EVERY in host memory (8
-# steps, as train_dense's and moe's: at 16 the smoke ran 1,015-1,210 s of
-# its 1,200 s limit, most of the two runs the 3.6 s draws of a batch)
+# HYBRID_FAIL_AT, a checkpoint every HYBRID_CKPT_EVERY in host memory (6
+# steps: at 16 the smoke ran 1,015-1,210 s of its 1,200 s limit, most of
+# the two runs the 3.6 s draws of a batch; 8 until the steps path came,
+# whose ~15 s the two steps fewer a run take back)
 HYBRID_ARCH = "recurrentgemma-2b"
 HYBRID_FORWARD, HYBRID_DECODE = (8, 2048), (8, 4096, 32)
 HYBRID_CUT, HYBRID_CHECK = 3, (2, 2100, 8)
-HYBRID_TRAIN, HYBRID_STEPS, HYBRID_FAIL_AT = (12, 8, 1024), 8, 4
+HYBRID_TRAIN, HYBRID_STEPS, HYBRID_FAIL_AT = (12, 8, 1024), 6, 3
 HYBRID_CKPT_EVERY, HYBRID_TIMED, HYBRID_F32_TOKENS = 2, 3, 96
 # the frontends path: whisper-medium (arXiv:2212.04356; 24 + 24 blocks,
 # 1,500 stub frames) prefilled with WHISPER_DECODE = (batch, prompt, steps)
@@ -369,6 +394,26 @@ HYBRID_CKPT_EVERY, HYBRID_TIMED, HYBRID_F32_TOKENS = 2, 3, 96
 # stub patch rows) prefilled with PIXTRAL_DECODE's prompts after them
 WHISPER_DECODE, WHISPER_F32_TOKENS = (8, 448, 32), 96
 PIXTRAL_DECODE = (8, 1024, 32)
+# the steps path: the reference's cells (src/repro/launch/steps.py:63-68)
+# built by launch/steps.py's build_step and run on the card, each held to
+# launch/dryrun.py's prediction for it (the dry run runs on the host,
+# started beside the kernel builds): STEPS_CELLS -- (arch, shape) -- at
+# the reference's shapes; STEPS_PREFILL = (arch, shape, sequences), cut
+# from 32 sequences (a cache of ~480 GB) and run on the decode path's
+# weights before they are freed; mamba2-130m's train_4k at one microbatch
+# of the largest of STEPS_TRAIN_BATCHES sequences of 4,096 that the dry run
+# fits beside what is held (the reference's 8 of 32).  mamba2-130m's
+# prefill_32k is not run: its stateful prefill walks 32,768 steps a token
+# at a time
+STEPS_CELLS = (("mamba2-130m", "decode_32k"), ("mamba2-130m", "long_500k"),
+               ("recurrentgemma-2b", "long_500k"))
+STEPS_PREFILL = ("gemma-7b", "prefill_32k", 1)
+STEPS_TRAIN_ARCH, STEPS_TRAIN_BATCHES = "mamba2-130m", (32, 16, 8, 4)
+# the dry run's predicted rise of device memory within this fraction of
+# the rise the card measures; a train batch is taken if its predicted peak
+# fits the card's memory less what is held and this margin (the CUDA
+# context, the allocator's segments)
+STEPS_MEM_TOL, STEPS_MARGIN = 0.15, 4 * 2**30
 
 
 def check(cond, msg):
@@ -607,14 +652,6 @@ class HashCalls:
     def __exit__(self, *exc):
         from repro_torch.core import hashing
         hashing.klh = self.klh
-
-
-def bound_of(flops, peak_flops, nbytes):
-    """(bound ms, what bounds it): the larger of the operations over the
-    peak rate for their type and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 def index_path(args, captured):
@@ -1074,8 +1111,8 @@ def hash_shape_record(key, args, calls, sp, W):
     nbytes = (x.numel() * x.element_size() + a.numel() * 4 + b.numel() * 4
               + (table.numel() * 4 if table is not None else 0) + n * K * 4)
     flops = 2.0 * n * d * K
-    bound, by = bound_of(flops, PEAK_F32_FLOPS, nbytes)
-    nonfused = flops / (PEAK_F32_FLOPS / 2) * 1e3
+    bound, by = ha.bound_of(flops, ha.PEAK_F32_FLOPS, nbytes)
+    nonfused = flops / (ha.PEAK_F32_FLOPS / 2) * 1e3
     chain_ms = None
     if a.dim() == 2:
         w = torch.tensor(kw["w"], dtype=torch.float32, device=x.device)
@@ -1445,14 +1482,14 @@ def bucket_search_record(kw, launches):
     # slot's table and bucket, every matched slot's point row, psq and
     # gid (once, however many rows match it), the live rows' queries and
     # probes, the outputs; the matched pairs' dots
-    bound, by = bound_of(2.0 * pairs * d, PEAK_F32_FLOPS,
+    bound, by = ha.bound_of(2.0 * pairs * d, ha.PEAK_F32_FLOPS,
                          S * N * 4 + valid_pts * 12 + slots * (d * 4 + 8)
                          + row_bytes + out_bytes)
     # the dense design's count: every live row against every
     # valid point of its shard
-    dense, _ = bound_of(
+    dense, _ = ha.bound_of(
         2.0 * float((live_s.double() * valid_s.double()).sum()) * d,
-        PEAK_F32_FLOPS, valid_pts * (d * 4 + 24) + row_bytes + out_bytes)
+        ha.PEAK_F32_FLOPS, valid_pts * (d * 4 + 24) + row_bytes + out_bytes)
     print(f"bucket_search d={d} K={K}: S={S} R={R} live rows {live_rows} "
           f"{live_s.tolist()} N={N} valid {valid_pts} matched pairs {pairs} "
           f"on {slots} slots, hits {hits}: "
@@ -1510,11 +1547,11 @@ def bucket_gather_record(a, kw, launches):
     # spanned slot's liveness and every valid one's point row, psq and
     # gid (each once, however many rows span it), the outputs; the valid
     # pairs' dots
-    bound, by = bound_of(2.0 * pairs * d, PEAK_F32_FLOPS,
+    bound, by = ha.bound_of(2.0 * pairs * d, ha.PEAK_F32_FLOPS,
                          S * E * 8 + live_e * (d * 4 + 4) + spanned * 4
                          + slots * (d * 4 + 8) + out_bytes)
     # every spanned slot's row and columns, valid or not
-    dense, _ = bound_of(2.0 * touched * d, PEAK_F32_FLOPS,
+    dense, _ = ha.bound_of(2.0 * touched * d, ha.PEAK_F32_FLOPS,
                         touched * (d * 4 + 12) + live_e * (d * 4 + 12)
                         + out_bytes)
     print(f"bucket_gather: S={S} E={E} live {live_e} rows touched "
@@ -1794,11 +1831,10 @@ def flash_measure(q, k, v, causal, where):
     library_ms, _ = timed(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, **_gqa(q, k)), REPS)
     B, H, S, dh = q.shape
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, got))
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[2])
-    # q.k over dh and p.v over v's width, 2 FLOPs a multiply-add
-    flops = 2.0 * pairs * (dh + v.shape[-1])
-    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    flops, nbytes = ha.flash_fwd_cost(
+        B, H, k.shape[1], S, k.shape[2], dh, v.shape[-1], causal=causal,
+        itemsize=q.element_size())
+    bound, by = ha.bound_of(flops, ha.PEAK_FLOPS, nbytes)
     print(f"flash_attention ({design}) at {where}: q {tuple(q.shape)} "
           f"{q.dtype}, v {tuple(v.shape)} strides {v.stride()}: {ms:.4f} ms "
           f"(plain {plain_ms:.3f} ms, scaled_dot_product_attention "
@@ -1857,20 +1893,15 @@ def ssd_record(a, kw, launches, by_design, hmma):
           f"ssd_scan differs from its plain version by {err}")
     B, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
-    es = x.element_size()
-    nbytes = (2 * B * S * H * P * es + 2 * B * S * G * N * es
-              + B * S * H * 4 + H * 4)
-    # the chunked algorithm at the kernel's chunk, causal half of the
-    # quadratic terms: C.state and the state update (2 S N P each),
-    # C B^T and M x over the S (Q + 1) / 2 pairs of each chunk
     Q = kssd.CHUNK
-    flops = float(B * H) * (4 * S * N * P + S * (Q + 1) * (N + P))
-    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    flops, nbytes = ha.ssd_fwd_cost(B, S, H, P, G, N,
+                                    itemsize=x.element_size())
+    bound, by = ha.bound_of(flops, ha.PEAK_FLOPS, nbytes)
     print(f"ssd_scan ({design}, chunk {Q}): x {tuple(x.shape)} {x.dtype}, "
           f"B/C {tuple(b.shape)}: "
           f"{ms:.4f} ms (plain {plain_ms:.2f} ms, bound {bound:.4f} ms: "
           f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, which take "
-          f"{flops / PEAK_F32_FLOPS * 1e3:.3f} ms at the float32 CUDA-core "
+          f"{flops / ha.PEAK_F32_FLOPS * 1e3:.3f} ms at the float32 CUDA-core "
           f"peak), max |err| {err:.3g}")
     return {
         "name": "ssd_scan", "route": "cuda",
@@ -2297,19 +2328,11 @@ def ssd_bwd_record(a, kw, launches, by_design, hmma):
         check(torch.allclose(g, w, rtol=tol, atol=tol * scale),
               f"ssd_scan_bwd {name} differs from its plain version by "
               f"{errs[name]} (largest |value| {scale})")
-    es = x.element_size()
-    nbytes = (3 * B * S * H * P * es + 4 * B * S * G * N * es
-              + 2 * B * S * H * 4 + 2 * H * 4)
-    # the chunked algorithm's products, each once, at the forward's chunk:
-    # per head the chunk states s and r and the inter-chunk products of
-    # dc, u and db (2 S P N FLOPs each), the scores C B^T and dY X^T and
-    # the intra-chunk products of dc, u and db over the S (Q + 1) / 2
-    # causal pairs of each chunk
-    Q = kssd.CHUNK
-    flops = float(B * H) * (10 * S * P * N + S * (Q + 1) * (3 * N + 2 * P))
-    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
-    bytes_ms, flops_ms = nbytes / PEAK_BYTES * 1e3, flops / \
-        PEAK_BF16_FLOPS * 1e3
+    flops, nbytes = ha.ssd_bwd_cost(B, S, H, P, G, N,
+                                    itemsize=x.element_size())
+    bound, by = ha.bound_of(flops, ha.PEAK_FLOPS, nbytes)
+    bytes_ms, flops_ms = nbytes / ha.HBM_BW * 1e3, flops / \
+        ha.PEAK_FLOPS * 1e3
     print(f"ssd_scan_bwd ({p.design}, {p.blocks} chunk blocks): x "
           f"{tuple(x.shape)} {x.dtype}, B/C {tuple(b.shape)}, workspace "
           f"{p.work_floats * 4 / 1e6:.0f} MB: {ms:.4f} ms (plain "
@@ -2710,14 +2733,10 @@ def flash_bwd_measure(a, kw, where):
         library_ms, _ = timed(lambda: torch.autograd.grad(
             lib_out, (qd, kd, vd), dout, retain_graph=True), REPS)
     del lib_out
-    nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, dout))
-              + lse.numel() * 4
-              + sum(t.numel() * t.element_size() for t in got))
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * k.shape[2])
-    # five products, 2 FLOPs a multiply-add: q.k, dq and dk over dh; dO.v
-    # and dv over v's width
-    flops = 2.0 * pairs * (3 * dh + 2 * dv)
-    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    flops, nbytes = ha.flash_bwd_cost(
+        B, H, k.shape[1], S, k.shape[2], dh, dv, causal=causal,
+        itemsize=q.element_size())
+    bound, by = ha.bound_of(flops, ha.PEAK_FLOPS, nbytes)
     print(f"flash_attention_bwd ({design}) at {where}: q {tuple(q.shape)} "
           f"{q.dtype} strides {q.stride()}, v {tuple(v.shape)}, dout strides "
           f"{dout.stride()}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
@@ -2780,11 +2799,9 @@ def flash_bwd_long(seed):
         library_ms, _ = timed(lambda: torch.autograd.grad(
             lib_out, (qd, kd, vd), dout, retain_graph=True), REPS)
     del lib_out
-    nbytes = (sum(t.numel() * t.element_size() for t in (q, k, v, o, dout))
-              + lse.numel() * 4
-              + sum(t.numel() * t.element_size() for t in got))
-    flops = 10.0 * B * H * S * (S + 1) // 2 * dh
-    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    flops, nbytes = ha.flash_bwd_cost(B, H, H, S, S, dh, dh, causal=True,
+                                      itemsize=q.element_size())
+    bound, by = ha.bound_of(flops, ha.PEAK_FLOPS, nbytes)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"flash_attention_bwd ({design}) at gemma-7b's context: q "
           f"{tuple(q.shape)} {q.dtype} strides {q.stride()}, causal: "
@@ -2856,6 +2873,292 @@ def _forward_rows(model, tokens, S, T, stubs=None):
     P = stubs["frontend_emb"].shape[1] if "frontend_emb" in stubs else 0
     return _logits(model, hidden_states(model, tokens[:, :S + T], **stubs)[
         :, P + S - 1:P + S + T])
+
+
+def start_dryrun(out_dir):
+    """``python -m repro_torch.launch.dryrun --all`` and the steps path's
+    cut cells: two host processes on the meta device, with no card
+    (CUDA_VISIBLE_DEVICES empty: no CUDA context on the card), started
+    beside the kernel builds at the lowest CPU priority (the builds and
+    the paths go first); their JSONs and logs go to ``out_dir``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    cut = [(*STEPS_PREFILL, None)] + [
+        (STEPS_TRAIN_ARCH, "train_4k", b, 1) for b in STEPS_TRAIN_BATCHES]
+    code = ("import sys\nfrom repro_torch.launch import dryrun\n"
+            f"recs = [dryrun.run_cell(a, s, {out_dir!r}, True, batch=b, "
+            f"microbatches=m) for a, s, b, m in {cut!r}]\n"
+            "sys.exit(0 if all(r['ok'] for r in recs) else 1)\n")
+    procs = []
+    for name, cmd in (
+            ("all", [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--all", "--force", "--out", out_dir]),
+            ("cut", [sys.executable, "-c", code])):
+        log = open(os.path.join(out_dir, f"dryrun_{name}.log"), "w")
+        procs.append((name, log, subprocess.Popen(
+            ["nice", "-n", "19", *cmd], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def stop_dryrun(procs):
+    """Stop any dry-run process still running."""
+    for _, log, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def finish_dryrun(procs, out_dir):
+    """Wait for the dry run (about a minute and a half on the card's host
+    beside the builds); fails if a cell failed."""
+    t0 = time.perf_counter()
+    for name, log, proc in procs:
+        rc = proc.wait(timeout=900)
+        log.flush()
+        text = Path(out_dir, f"dryrun_{name}.log").read_text()
+        check(rc == 0, f"the dry run ({name}) exited {rc}:\n{text[-3000:]}")
+    print(f"phase steps dryrun waited {time.perf_counter() - t0:.1f} s")
+
+
+def dry_record(out_dir, arch, shape, batch=None, microbatches=None):
+    from repro_torch.launch import dryrun
+    name = dryrun.cell_name(arch, shape, batch, microbatches)
+    rec = json.loads(Path(out_dir, name + ".json").read_text())
+    check(rec["ok"], f"dry run of {name} failed: {rec.get('error')}")
+    return rec
+
+
+def dryrun_summary(out_dir):
+    """One line for the dry run's 40 cells: fits one card or not, the
+    predicted peak, FLOPs, roofline ms and bottleneck (or the reference's
+    skip); every cell ran with no loop of unknown trip count and every
+    kernel launch through its plan."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import steps
+    parts, n_fit, cap = [], 0, None
+    for arch in list_archs():
+        for shape in steps.SHAPES:
+            r = dry_record(out_dir, arch, shape)
+            name = f"{r['arch']} {shape}"
+            if r.get("skipped"):
+                parts.append(f"{name} skipped")
+                continue
+            m, rl = r["memory"], r["roofline"]
+            check(r["cost"]["unknown_trip_loops"] == 0 and all(
+                k["plan_ok"] for k in r["kernels"].values()),
+                f"dry run of {name}: {r['cost']}, {r['kernels']}")
+            n_fit += m["fits"]
+            cap = m["capacity_of"]
+            parts.append(
+                f"{name} {'fits' if m['fits'] else 'does not fit'} "
+                f"{m['peak_bytes'] / 2**30:.2f} GiB {r['cost']['flops']:.4g} "
+                f"FLOP {rl['step_time_s'] * 1e3:.4g} ms {rl['bottleneck']}")
+    print(f"phase steps dryrun: {len(parts)} cells, {n_fit} fit one card "
+          f"({cap}): " + "; ".join(parts))
+    return n_fit
+
+
+def _same_tree(a, b):
+    """Every tensor leaf of a and b bitwise equal and finite, compared in
+    pieces of 2**28 elements (a cache leaf of gemma-7b at 32,768
+    positions is 7.5 GB)."""
+    import torch
+    from repro_torch.tree import leaves
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        for u, v in zip(x.reshape(-1).split(1 << 28),
+                        y.reshape(-1).split(1 << 28)):
+            if not (torch.equal(u, v) and bool(torch.isfinite(u).all())):
+                return False
+    return True
+
+
+def steps_measure(name, fn, args, rec, reduced):
+    """One built step on the card, after the hand-built path ran on the
+    same inputs: the launch counts from 0, the rise of device memory over
+    what is held (after ``reset_peak_memory_stats``), CUDA events; the
+    launches must equal the dry run's, every one "tensor_core", and the
+    dry run's predicted rise must be within STEPS_MEM_TOL of the measured.
+    Returns (the step's outputs, the cell's record)."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ssd_scan as kssd
+    torch.cuda.synchronize()
+    _reset_launches()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    rise = torch.cuda.max_memory_allocated() - held
+    launches = {k: v for k, v in _launch_counts().items() if v}
+    designs = {k: {d: n for d, n in fn_.launches_by_design.items() if n}
+               for k, fn_ in (("flash_attention", kfa.flash_attention_cuda),
+                              ("flash_attention_bwd",
+                               kfa.flash_attention_bwd_cuda),
+                              ("ssd_scan", kssd.ssd_scan_cuda),
+                              ("ssd_scan_bwd", kssd.ssd_scan_bwd_cuda))
+               if k in launches}
+    want = {k: v["launches"] for k, v in rec["kernels"].items()}
+    check(launches == want, f"{name}: launches {launches}, the dry run "
+          f"counted {want}")
+    check(all(d == {"tensor_core": launches[k]} == rec["kernels"][k][
+              "designs"] for k, d in designs.items()),
+          f"{name}: launches by design {designs}, the dry run's "
+          f"{ {k: v['designs'] for k, v in rec['kernels'].items()} }")
+    pred = rec["memory"]["step_peak_bytes"]
+    err = (pred - rise) / max(rise, 1)
+    rl = rec["roofline"]
+    tflops = rl["model_flops"] / (ms * 1e-3) / 1e12
+    print(f"phase steps {name}: {ms:.3f} ms (CUDA events; the roofline "
+          f"{rl['step_time_s'] * 1e3:.4f} ms, {rl['bottleneck']}), "
+          f"{tflops:.2f} model TFLOP/s; device memory rise {rise} bytes "
+          f"({rise / 2**30:.3f} GiB) above the {held / 2**30:.2f} GiB held, "
+          f"the dry run's {pred} ({err:+.2%}); launches {launches} "
+          f"{designs}, as the dry run's; reduced: {reduced or 'none'}")
+    check(abs(pred - rise) <= STEPS_MEM_TOL * rise,
+          f"{name}: the dry run predicted a rise of {pred} bytes, the card "
+          f"rose {rise} ({err:+.2%}, tolerance {STEPS_MEM_TOL:.0%})")
+    return out, {"ms": ms, "roofline_ms": rl["step_time_s"] * 1e3,
+                 "bottleneck": rl["bottleneck"],
+                 "model_flops": rl["model_flops"], "model_tflops": tflops,
+                 "rise_bytes": rise, "predicted_rise_bytes": pred,
+                 "rise_error": err, "held_bytes": held,
+                 "predicted_peak_bytes": rec["memory"]["peak_bytes"],
+                 "launches": launches, "launches_by_design": designs,
+                 "reduced": reduced, "bitwise": None}
+
+
+def steps_prefill_cell(model, dry_dir, seed):
+    """STEPS_PREFILL on the decode path's gemma-7b (28 blocks, bf16): the
+    built prefill step against ``prefill`` called directly on the same
+    prompt and a cache of its own, bitwise (logits and every cache
+    leaf)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import init_cache, prefill
+    t0 = time.perf_counter()
+    arch, shape, B = STEPS_PREFILL
+    cfg, S = model.cfg, steps.SHAPES[shape]["seq"]
+    check(cfg.name == arch, f"{cfg.name} is not {arch}")
+    rec = dry_record(dry_dir, arch, shape, batch=B)
+    built = steps.build_step(cfg, make_production_mesh(), shape, batch=B)
+    tokens = _decode_tokens(cfg, seed, B, S).to(torch.int32)
+    want = prefill(model, tokens, init_cache(cfg, B, S))
+    out, cell = steps_measure(
+        f"{arch} {shape}", built.fn, (model, init_cache(cfg, B, S), tokens),
+        rec, [f"batch {steps.SHAPES[shape]['batch']} -> {B} (the cache at "
+              f"32 sequences is ~480 GB)"])
+    cell["bitwise"] = _same_tree(out, want)
+    check(cell["bitwise"], f"{arch} {shape}: the built step differs from "
+          f"prefill called directly")
+    del out, want
+    torch.cuda.empty_cache()
+    cell["seconds"] = time.perf_counter() - t0
+    print(f"phase steps {arch} {shape}: bitwise prefill's; "
+          f"{cell['seconds']:.1f} s")
+    return cell
+
+
+def steps_path(args, dry_dir, prefill_cell):
+    """The steps path: the dry run's 40 cells in one line, then
+    STEPS_CELLS and the mamba2-130m training cell built by
+    ``steps.build_step`` and run on the card, each against the hand-built
+    path on the same inputs, bitwise: ``decode_step`` called directly, and
+    ``launch/train.make_step`` under ``train.deterministic()`` (loss,
+    parameters, moments).  ``prefill_cell`` is the decode path's gemma-7b
+    cell.  Returns the path's record."""
+    import torch
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    param_tree)
+    t0 = time.perf_counter()
+    mesh = make_production_mesh()
+    out = {"dryrun_cells_fit": dryrun_summary(dry_dir),
+           " ".join(STEPS_PREFILL[:2]): prefill_cell}
+    model = None
+    for arch, shape in STEPS_CELLS:
+        if model is None or model.cfg.name != arch:
+            model = None
+            torch.cuda.empty_cache()
+            model = init_params(get_config(arch), generator=torch.Generator(
+                device="cuda").manual_seed(args.seed), device="cuda")
+        cfg = model.cfg
+        s = steps.SHAPES[shape]
+        B, S = s["batch"], s["seq"]
+        rec = dry_record(dry_dir, arch, shape)
+        built = steps.build_step(cfg, mesh, shape)
+        token = _decode_tokens(cfg, args.seed, B, 1).to(torch.int32)
+        pos = torch.tensor(S - 1, dtype=torch.int32, device="cuda")
+        want = decode_step(model, token, init_cache(cfg, B, S), pos)
+        got, cell = steps_measure(f"{arch} {shape}", built.fn,
+                                  (model, init_cache(cfg, B, S), token, pos),
+                                  rec, [])
+        cell["bitwise"] = _same_tree(got, want)
+        check(cell["bitwise"], f"{arch} {shape}: the built step differs "
+              f"from decode_step called directly")
+        out[f"{arch} {shape}"] = cell
+        del got, want
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = get_config(STEPS_TRAIN_ARCH)
+    room = (torch.cuda.get_device_properties(0).total_memory
+            - torch.cuda.memory_allocated() - STEPS_MARGIN)
+    fit = [b for b in STEPS_TRAIN_BATCHES if dry_record(
+        dry_dir, STEPS_TRAIN_ARCH, "train_4k", b, 1)["memory"][
+        "peak_bytes"] <= room]
+    check(fit, f"no batch of {STEPS_TRAIN_BATCHES} fits {room} bytes")
+    B, S = fit[0], steps.SHAPES["train_4k"]["seq"]
+    rec = dry_record(dry_dir, STEPS_TRAIN_ARCH, "train_4k", B, 1)
+    opt_cfg = optim.AdamWConfig()
+    built = steps.build_step(cfg, mesh, "train_4k", batch=B, microbatches=1,
+                             opt_cfg=opt_cfg)
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    model = init_params(cfg, generator=g, device="cuda")
+    params = param_tree(model)
+    state = (params, optim.init(params))
+    tokens, labels = (torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                    device="cuda", dtype=torch.int32)
+                      for _ in range(2))
+    with train.deterministic():
+        (p1, o1), l1 = train.make_step(model, opt_cfg)(state,
+                                                       (tokens, labels))
+        got, cell = steps_measure(
+            f"{STEPS_TRAIN_ARCH} train_4k", built.fn,
+            (model, *state, tokens, labels), rec,
+            [f"{steps.TRAIN_MICROBATCHES} microbatches of "
+             f"{steps.SHAPES['train_4k']['batch'] // steps.TRAIN_MICROBATCHES}"
+             f" sequences -> 1 of {B} (the largest of "
+             f"{STEPS_TRAIN_BATCHES} the dry run fits beside what is held)"])
+    cell["bitwise"] = _same_tree((p1, o1, l1), got[:3])
+    check(cell["bitwise"], f"{STEPS_TRAIN_ARCH} train_4k: the built step's "
+          f"loss, parameters or moments differ from make_step's")
+    cell["batch"] = B
+    out[f"{STEPS_TRAIN_ARCH} train_4k"] = cell
+    del model, params, state, got, p1, o1
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    out["seconds"] = secs + prefill_cell["seconds"]
+    print(f"phase steps: {secs:.1f} s here and {prefill_cell['seconds']:.1f}"
+          f" s in the decode path; every cell bitwise the hand-built path, "
+          f"within {STEPS_MEM_TOL:.0%} of the dry run's memory, its "
+          f"launches the dry run's")
+    return out
 
 
 def _decode_tokens(cfg, seed, B, n):
@@ -2944,12 +3247,13 @@ def decode_checks(cfg, seed, cut=DECODE_CUT, shape=DECODE_CHECK,
             "f32_max_abs_err": err}
 
 
-def decode_path(args, captured):
+def decode_path(args, captured, dry_dir):
     """gemma-7b and mamba2-130m at their published widths and depths
     (bf16, weights from --seed): a prompt of S tokens prefilled into a
     cache, then T teacher-forced decode steps, then the forward at the
-    decoded positions (reported), and ``decode_checks``.  Returns the
-    path's numbers by arch."""
+    decoded positions (reported), and ``decode_checks``; on gemma-7b's
+    weights, before they are freed, the steps path's prefill cell
+    (``steps_prefill_cell``).  Returns the path's numbers by arch."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kfa
@@ -3016,11 +3320,17 @@ def decode_path(args, captured):
               f"forward at the {T + 1} decoded positions (reported, not "
               f"checked): max |logit difference| {err:.4g}, top-1 agreement "
               f"{top1:.4f}; {time.perf_counter() - t0:.1f} s")
-        del model, dec, fwd
+        del dec, fwd
+        peak_before = torch.cuda.max_memory_allocated()
+        if arch == STEPS_PREFILL[0]:      # resets the peak statistics
+            out["steps_prefill"] = steps_prefill_cell(model, dry_dir,
+                                                      args.seed)
+        del model
         torch.cuda.empty_cache()
         checks = decode_checks(cfg, args.seed)
         secs = time.perf_counter() - t0
-        path_peak = torch.cuda.max_memory_allocated() / 2**30
+        path_peak = max(peak_before,
+                        torch.cuda.max_memory_allocated()) / 2**30
         print(f"phase decode {arch}: {secs:.1f} s with the checks, peak "
               f"device memory {path_peak:.2f} GiB (all held)")
         out[arch] = {"batch": B, "prompt": S, "steps": T, "seconds": secs,
@@ -3948,7 +4258,7 @@ def hybrid_parts(captured, n_local, n_rglru):
     out = {}
     (a, b), _ = captured.pop("hybrid linear_scan")
     ms, _ = timed(lambda: rglru.linear_scan(a, b), REPS)
-    bound, by = bound_of(0.0, PEAK_F32_FLOPS,
+    bound, by = ha.bound_of(0.0, ha.PEAK_F32_FLOPS,
                          3 * a.numel() * a.element_size())
     print(f"hybrid: the RG-LRU scan at a prefill's inputs {tuple(a.shape)} "
           f"float32: {ms:.4f} ms a call, {n_rglru} a prefill "
@@ -3967,7 +4277,7 @@ def hybrid_parts(captured, n_local, n_rglru):
     seen = sum(min(i + 1, window) for i in range(Sq))
     flops = 2.0 * B * H * seen * 2 * dh
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    bound, by = bound_of(flops, PEAK_BF16_FLOPS, nbytes)
+    bound, by = ha.bound_of(flops, ha.PEAK_FLOPS, nbytes)
     print(f"hybrid: the windowed attention ({path}) at a prefill's inputs "
           f"q {tuple(q.shape)}, k {tuple(k.shape)}, window {window}: {ms:.3f}"
           f" ms a call, {n_local} a prefill ({ms * n_local:.1f} ms); a "
@@ -3982,7 +4292,7 @@ def hybrid_parts(captured, n_local, n_rglru):
     window = args[6]
     nbytes = (q.numel() + 2 * q.shape[0] * kc.shape[1] * window
               * kc.shape[-1]) * kc.element_size()
-    bound, by = bound_of(0.0, PEAK_BF16_FLOPS, nbytes)
+    bound, by = ha.bound_of(0.0, ha.PEAK_FLOPS, nbytes)
     print(f"hybrid: the windowed one-token attention at a decode step's "
           f"inputs (cache {tuple(kc.shape)}, window {window}): {ms:.4f} ms a"
           f" call, {n_local} a step ({ms * n_local:.2f} ms); bound "
@@ -4252,14 +4562,6 @@ def main() -> int:
                          "index path")
     args = ap.parse_args()
 
-    # the train path's deterministic cuBLAS workspace: PyTorch reads it
-    # once, at the first cuBLAS call, which an earlier path makes
-    # (repro_torch.launch.train.CUBLAS_WORKSPACE_CONFIG)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    # and the allocator's expandable segments, which the train_dense
-    # path's AdamW step needs (repro_torch.launch.train.CUDA_ALLOC_CONF)
-    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
-                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4272,6 +4574,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {dev_name} x{count}")
 
+    # the dry run of every cell, on the host while the kernels build
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry = start_dryrun(dry_dir)
+    atexit.register(shutil.rmtree, dry_dir, True)
+    atexit.register(stop_dryrun, dry)
     t0 = time.perf_counter()
     libs = build_kernels()
     print(f"phase build_kernels: {time.perf_counter() - t0:.1f} s")
@@ -4375,7 +4682,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     records["flash_attention_bwd"].update(flash_bwd_long(args.seed))
     torch.cuda.empty_cache()
-    decode = decode_path(args, captured)
+    finish_dryrun(dry, dry_dir)
+    decode = decode_path(args, captured, dry_dir)
+    prefill_cell = decode.pop("steps_prefill")
     records["flash_attention"].update(flash_prefill(
         captured.pop("flash_attention_prefill"),
         decode["gemma-7b"]["launches"]["flash_attention"]))
@@ -4414,6 +4723,8 @@ def main() -> int:
     for k, got in (("flash_attention", fwd), ("flash_attention_bwd", bwd)):
         records[k]["new_families"] = got
         records[k]["new_family_launches"] = launches[k]
+    print("steps: " + json.dumps(steps_path(args, dry_dir, prefill_cell)))
+    torch.cuda.empty_cache()
     print(f"total {time.perf_counter() - t_start:.0f} s")
     records["lsh_hash"] = lsh_hash_record(hash_shapes, hash_launches,
                                           own_launches)

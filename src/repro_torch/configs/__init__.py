@@ -33,6 +33,11 @@ _ALIASES.update({
 })
 
 
+def list_archs():
+    """The zoo's arch ids, in the reference's registry order."""
+    return list(ARCHS)
+
+
 def get_config(name: str, reduced: bool = False):
     """Load an architecture config by id (dash or underscore form).
 

@@ -18,6 +18,12 @@ same rule ("tensor_core" there is bf16 on ``wgmma``, fed by TMA through
 a ring of stages, and also needs every stride positive).  Each wrapper
 counts its launches in ``launches`` and, per design, in
 ``launches_by_design``.
+
+On meta tensors (the dry run's device, ``launch/dryrun.py``) both take
+the card's route up to the launch -- the checks, ``plan`` or
+``bwd_plan`` at the call's shapes and strides, the outputs and
+workspace -- then report the launch to ``launch/op_cost.py`` with its
+cost instead of making it: no launch is counted.
 """
 from __future__ import annotations
 
@@ -185,7 +191,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Hkv, Sq, Sk, dh, dv = _check(q, k, v, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return ref.attention_ref(q, k, v, causal=causal, scale=scale,
                                  return_lse=return_lse)
     _need(k.device == q.device and v.device == q.device,
@@ -200,6 +206,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = plan(q.dtype, dh, Sq, strides=strides,
              aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v, o)))
     if o.numel() == 0:
+        o = o[..., :dv]
+        return (o, lse) if return_lse else o
+    if q.is_meta:             # the dry run: reported, not launched
+        from repro_torch.launch import hlo_analysis, op_cost
+        op_cost.kernel("flash_attention", p.design, *hlo_analysis
+                       .flash_fwd_cost(B, H, Hkv, Sq, Sk, dh, dv,
+                                       causal=causal,
+                                       itemsize=q.element_size(),
+                                       lse=return_lse))
         o = o[..., :dv]
         return (o, lse) if return_lse else o
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -313,7 +328,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
           f"lse must be ({B}, {H}, {Sq}) float32")
     if scale is None:
         scale = 1.0 / math.sqrt(dh)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, dout,
                                            causal=causal, scale=scale)
     _need(all(t.device == q.device for t in (k, v, o, lse, dout)),
@@ -332,6 +347,13 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         return dq, dk.zero_(), dv[..., :dv_dim].zero_().contiguous()
     delta = torch.empty((B, H, p.workspace_rows), dtype=torch.float32,
                         device=q.device)
+    if q.is_meta:             # the dry run: reported, not launched
+        from repro_torch.launch import hlo_analysis, op_cost
+        op_cost.kernel("flash_attention_bwd", p.design, *hlo_analysis
+                       .flash_bwd_cost(B, H, Hkv, Sq, Sk, dh, dv_dim,
+                                       causal=causal,
+                                       itemsize=q.element_size()))
+        return dq, dk, dv if dv_dim == dh else dv[..., :dv_dim].contiguous()
     ptrs = tuple(t.data_ptr() for t in (q, k, v, o, dout, lse, delta, dq,
                                         dk, dv))
     shape = (B, H, Hkv, Sq, Sk, dh, float(scale), int(causal))

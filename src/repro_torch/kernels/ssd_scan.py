@@ -17,6 +17,12 @@ design by ``plan``'s rule -- "tensor_core" (the chunked backward on
 ``mma.sync``) or "cuda_core" (the reverse recurrence one step at a time,
 in float32) -- and mirrors its shared memory and workspace; it counts its
 calls in ``launches`` and ``launches_by_design``.
+
+On meta tensors (the dry run's device, ``launch/dryrun.py``) both take
+the card's route up to the launch -- the checks, ``plan`` or
+``bwd_plan``, the outputs and workspace -- then report the launch to
+``launch/op_cost.py`` with its cost instead of making it: no launch is
+counted.
 """
 from __future__ import annotations
 
@@ -144,7 +150,7 @@ def ssd_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     _need(x.dtype == b.dtype == c.dtype and x.dtype in _DTYPES,
           f"x, b, c must share float32 or bfloat16, got {x.dtype}, "
           f"{b.dtype}, {c.dtype}")
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return ref.ssd_scan_ref(x, a_log, b, c, dt)
     _need(all(t.device == x.device for t in (a_log, b, c, dt)),
           "x, a_log, b, c, dt must be on one CUDA device")
@@ -153,6 +159,11 @@ def ssd_scan_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
              strides=[*x.stride(), *b.stride(), *c.stride(), *y.stride()],
              aligned=all(t.data_ptr() % 16 == 0 for t in (x, b, c, y)))
     if y.numel() == 0:
+        return y
+    if x.is_meta:             # the dry run: reported, not launched
+        from repro_torch.launch import hlo_analysis, op_cost
+        op_cost.kernel("ssd_scan", p.design, *hlo_analysis.ssd_fwd_cost(
+            B, S, H, P, G, N, itemsize=x.element_size()))
         return y
     a_log = a_log.contiguous()
     ptrs = (x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
@@ -275,7 +286,7 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     _need(x.dtype == b.dtype == c.dtype == dy.dtype and x.dtype in _DTYPES,
           f"x, b, c, dy must share float32 or bfloat16, got {x.dtype}, "
           f"{b.dtype}, {c.dtype}, {dy.dtype}")
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return ref.ssd_scan_bwd_ref(x, a_log, b, c, dt, dy)
     _need(all(t.device == x.device for t in (a_log, b, c, dt, dy)),
           "x, a_log, b, c, dt, dy must be on one CUDA device")
@@ -291,6 +302,11 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, a_log: torch.Tensor, b: torch.Tensor,
     p = bwd_plan(x.dtype, B, S, H, P, N, strides=strides, aligned=all(
         t.data_ptr() % 16 == 0 for t in (x, b, c, dy)))
     work = torch.empty((p.work_floats,), dtype=torch.float32, device=dev)
+    if x.is_meta:             # the dry run: reported, not launched
+        from repro_torch.launch import hlo_analysis, op_cost
+        op_cost.kernel("ssd_scan_bwd", p.design, *hlo_analysis.ssd_bwd_cost(
+            B, S, H, P, G, N, itemsize=x.element_size()))
+        return dx, db, dc, ddt, da_log
     a_log = a_log.contiguous()
     ptrs = (x.data_ptr(), b.data_ptr(), c.data_ptr(), dt.data_ptr(),
             a_log.data_ptr(), dy.data_ptr(), dx.data_ptr(), db.data_ptr(),

@@ -58,10 +58,11 @@ def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     the card a float32-output product of the bf16 operands, so no float32
     copy of a KV cache is made; float32 operands take the plain product;
     on the CPU, where PyTorch has no float32-output product, bf16
-    operands are widened first (exact: a bf16 product fits float32)."""
+    operands are widened first (exact: a bf16 product fits float32).  On
+    the meta device (the dry run) the card's route."""
     if a.dtype == b.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

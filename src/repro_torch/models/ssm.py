@@ -16,6 +16,8 @@ starts from a zero state and returns y only.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -128,11 +130,25 @@ def _ssd_recurrent(p, xh, bh, ch, dt, ssm_state, G: int, H: int):
     xdt = xh.float() * dt[..., None]                         # (B, S, H, P)
     state = ssm_state.clone()
     ys = []
-    for t in range(xh.shape[1]):
-        state.mul_(decay[:, t, :, None, None])
-        state.addcmul_(xdt[:, t, :, :, None], bq[:, t, :, None, :])
-        ys.append(torch.matmul(state, cq[:, t, :, :, None]))
+    with _trips(xh.shape[1], xh) as steps:
+        for t in range(steps):
+            state.mul_(decay[:, t, :, None, None])
+            state.addcmul_(xdt[:, t, :, :, None], bq[:, t, :, None, :])
+            ys.append(torch.matmul(state, cq[:, t, :, :, None]))
+    if len(ys) == 1:          # the dry run's one step stands for them all
+        ys *= xh.shape[1]
     return torch.cat(ys, dim=-1).permute(0, 3, 1, 2).to(xh.dtype), state
+
+
+def _trips(n: int, like: torch.Tensor):
+    """A context giving the steps the recurrence runs: all ``n``, but on
+    the meta device under the dry run's counter one, counted n times
+    (``launch/op_cost.trips``): the stateful prefill of a 32,768-token
+    prompt is one Python step a token."""
+    if not like.is_meta:
+        return contextlib.nullcontext(n)
+    from repro_torch.launch import op_cost
+    return op_cost.trips(n, like)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device=None) -> dict:

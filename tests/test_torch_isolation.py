@@ -46,7 +46,10 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.data.datasets", "repro_torch.data.dedup",
               "repro_torch.data.pipeline", "repro_torch.optim.adamw",
               "repro_torch.optim.compression", "repro_torch.runtime.loop",
-              "repro_torch.launch.train", "repro_torch.tree"):
+              "repro_torch.launch.train", "repro_torch.tree",
+              "repro_torch.launch.steps", "repro_torch.launch.dryrun",
+              "repro_torch.launch.op_cost", "repro_torch.launch.hlo_analysis",
+              "repro_torch.launch.mesh"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -224,6 +227,7 @@ NOT_PORTED = {
     "optim": {},
     "runtime": {},
     "models": {},
+    "launch": {},
 }
 
 
