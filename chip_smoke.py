@@ -49,6 +49,20 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                exact-duplicate queries, insert 256 documents and answer
                one more batch; then the full scan at d = 3072 against the
                CSR gather, bitwise, before and after a ``compact()``;
+  contracts -- on the index of the index path (after its writes): the
+               staged stages of one served bucket under the contract
+               gate's trace pass (``repro_torch.analysis``): exchanges 1,
+               0 and 1, the host syncs of each exactly those its
+               manifest names (torch's sync-debug "warn" mode), 32-bit
+               payloads, ops and allocator peak printed; one insert of
+               4,096 points, its store columns written in place, then
+               deleted (4,096 tombstoned tail rows for the paths after);
+               then ``python -m repro_torch.analysis.check --device
+               cuda`` (which must pass: the check config at T = 1, 2, 4,
+               the bucket library's shared memory equal to its plans')
+               and with each of its four seeded violations (each must
+               fail); each kernel's first call at each width held
+               against its plain version, the hashes bitwise;
   serving   -- on the index of the index path (after its writes): the
                staged query (``query_staged``: bitwise ``query``, 1, 0 and
                1 exchanges a stage) and ``AsyncLSHService`` (bucket 64,
@@ -93,6 +107,15 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
                against their plain versions at one layer's inputs of a
                training step, the gradient also against its own second
                launch, bitwise;
+  example   -- after it, ``examples/serve_retrieval_torch.py``
+               (reduced gemma-7b, 2,048 documents, inserts of 128 and
+               query batches of 64 from the reference's draws) twice on
+               one snapshot directory with --pipelined: cold with 2
+               steps, then a warm restart with 4 that must resume the
+               stream at step 2 and serve steps 2 and 3, drops 0; ms a
+               step; each kernel's first call held against its plain
+               version (the flash forward's float32 "cuda_core" design
+               within FLASH_F32_TOL, the hashes bitwise);
   train_dense -- after it, gemma-7b at its published width (d_model 3072,
                16 heads of 256, d_ff 24,576, vocab 256,000, tied head,
                softcap 30, bf16) cut to 6 of its 28 blocks (memory),
@@ -215,10 +238,12 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 
 Each path runs with every launch count set to 0 just before it and read
 just after; the flash and SSD wrappers (forward and gradient) also count
-per design, and every launch of those paths must go to their
+per design, and every launch of the model paths must go to their
 "tensor_core" designs, whose SASS must hold tensor-core instructions:
 HMMA (``mma.sync``) in the flash forward's and both SSD kernels', HGMMA
-(``wgmma``) in each of the flash gradient's.  Each kernel is then
+(``wgmma``) in each of the flash gradient's; the example path's float32
+model takes the flash forward's "cuda_core" design, which it holds
+against its plain version at FLASH_F32_TOL.  Each kernel is then
 held against its plain PyTorch version on the inputs its path gave it
 and timed with CUDA events (both gradient kernels also against their own
 second launch, bitwise); the hash kernel BITWISE, at the first call
@@ -245,7 +270,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -288,6 +312,9 @@ BF16_TOL = 0.05    # the reference's bf16 attention tolerance
 # typical |o| near BF16_TOL at 2,048 keys, where BF16_TOL alone would
 # pass a dropped key tile)
 FLASH_ROW_TOL = 1e-2
+# the flash forward in float32 (its "cuda_core" design) against its plain
+# version: the card tests' tolerance (tests/test_torch_cuda.py)
+FLASH_F32_TOL = 2e-5
 HASH_SAMPLE = 65536  # rows of each hash call checked against the CPU
 # the simulate path: the paper's Random scale (d = 100, 1M points, 100K
 # queries; the reference's benches cut it to 20,000 / 2,000), 64 shards
@@ -414,6 +441,11 @@ STEPS_TRAIN_ARCH, STEPS_TRAIN_BATCHES = "mamba2-130m", (32, 16, 8, 4)
 # fits the card's memory less what is held and this margin (the CUDA
 # context, the allocator's segments)
 STEPS_MEM_TOL, STEPS_MARGIN = 0.15, 4 * 2**30
+# the contracts path: points of the insert whose store columns must stay
+# in place; the example path: --steps of its cold run and of its warm
+# restart, which resumes at the cold run's last step
+CONTRACTS_INSERT = 4096
+EXAMPLE_STEPS = (2, 4)
 
 
 def check(cond, msg):
@@ -606,6 +638,130 @@ def recorder(captured, name, fn):
         captured.setdefault(name, (a, kw))
         return fn(*a, **kw)
     return wrapped
+
+
+def keyed_recorder(captured, name, fn, key):
+    """fn, recording the arguments of its first call at each key(*a,
+    **kw) under f"{name} {key}"."""
+    def wrapped(*a, **kw):
+        captured.setdefault(f"{name} {key(*a, **kw)}", (a, kw))
+        return fn(*a, **kw)
+    return wrapped
+
+
+def design_recorder(captured, name, fn):
+    """fn (a wrapper counting ``launches_by_design``), recording the
+    arguments of its first launch of each design under f"{name}
+    {design}"."""
+    def wrapped(*a, **kw):
+        before = dict(fn.launches_by_design)
+        out = fn(*a, **kw)
+        for design, n in fn.launches_by_design.items():
+            if n > before[design]:
+                captured.setdefault(f"{name} {design}", (a, kw))
+        return out
+    return wrapped
+
+
+class PathCalls:
+    """While a path runs (``with PathCalls(name) as calls``): the first
+    call of the bucket kernels at each width d, of the flash forward in
+    each design, and (``calls.hash``, a HashCalls in phase ``name``) of
+    each hash kind.  ``hold()`` then holds every recorded call against
+    its plain version on the same inputs: the bucket kernels' gids and
+    counts equal and distances within 1e-5 (``compare``), the flash
+    forward within FLASH_F32_TOL in float32 (BF16_TOL and FLASH_ROW_TOL
+    in bf16), the hashes bitwise (``hash_records``), each kernel also
+    launched twice to the same bits."""
+
+    def __init__(self, name):
+        self.name, self.captured = name, {}
+
+    def __enter__(self):
+        from repro_torch.kernels import bucket_search as kbs
+        from repro_torch.kernels import flash_attention as kfa
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.saved = {k: getattr(ops, k) for k in (
+            "bucket_search_cuda", "bucket_gather_cuda",
+            "flash_attention_cuda")}
+        ops.bucket_search_cuda = keyed_recorder(
+            self.captured, "bucket_search", kbs.bucket_search_cuda,
+            lambda **kw: f"d={kw['query'].q.shape[-1]}")
+        ops.bucket_gather_cuda = keyed_recorder(
+            self.captured, "bucket_gather", kbs.bucket_gather_cuda,
+            lambda *a, **kw: f"d={a[0].shape[-1]}")
+        ops.flash_attention_cuda = design_recorder(
+            self.captured, "flash_attention", kfa.flash_attention_cuda)
+        self.hash = HashCalls().__enter__()
+        self.hash.phase = self.name
+        return self
+
+    def __exit__(self, *exc):
+        self.hash.__exit__()
+        for k, fn in self.saved.items():
+            setattr(self.ops, k, fn)
+
+    def hold(self, launches):
+        """Every recorded call against its plain version; every kernel
+        launched on the path must have one (flash: every design it
+        launched).  Returns the hash shapes' records."""
+        import torch
+        from repro_torch.kernels import bucket_search as kbs
+        from repro_torch.kernels import flash_attention as kfa
+        from repro_torch.kernels import ref
+        t0 = time.perf_counter()
+        # the path's launches by design, before the comparisons launch
+        by_design = {d: n for d, n in
+                     kfa.flash_attention_cuda.launches_by_design.items() if n}
+        held = collections.Counter()
+        for key, (a, kw) in sorted(self.captured.items()):
+            kname = key.split()[0]
+            held[kname] += 1
+            if kname == "flash_attention":
+                one = lambda f: (lambda o: o if isinstance(o, tuple)
+                                 else (o,))(f(*a, **kw))
+                got = one(kfa.flash_attention_cuda)
+                same_bits(key, got, one(kfa.flash_attention_cuda))
+                want = one(ref.attention_ref)
+                tol = (FLASH_F32_TOL if a[0].dtype == torch.float32
+                       else BF16_TOL)
+                err = max(float((x.float() - y.float()).abs().max())
+                          for x, y in zip(got, want))
+                check(all(torch.allclose(x.float(), y.float(), rtol=tol,
+                                         atol=tol)
+                          for x, y in zip(got, want)),
+                      f"{self.name}: {key} differs from its plain version "
+                      f"by {err} (tolerance {tol})")
+                if a[0].dtype != torch.float32:
+                    flash_rows(got[0], want[0], f"the {self.name} path")
+                print(f"{self.name}: {key} at q {tuple(a[0].shape)} "
+                      f"{a[0].dtype}: max |err| {err:.3g} against its plain "
+                      f"version (tolerance {tol}), two launches bitwise")
+                continue
+            kern, plain = ((kbs.bucket_search_cuda, ref.bucket_search_ref)
+                           if kname == "bucket_search" else
+                           (kbs.bucket_gather_cuda, ref.bucket_gather_ref))
+            got = kern(*a, **kw)
+            same_bits(key, got, kern(*a, **kw))
+            err = compare(f"{self.name}: {key}", got, plain(*a, **kw))
+            print(f"{self.name}: {key}: gids and counts equal to its plain "
+                  f"version, max |d2 err| {err:.3g}, two launches bitwise")
+        check(sum(by_design.values()) == launches["flash_attention"],
+              f"{self.name}: flash launches by design {by_design}")
+        for design in by_design:
+            check(f"flash_attention {design}" in self.captured,
+                  f"{self.name}: no flash call of design {design} held")
+        for kname in ("bucket_search", "bucket_gather"):
+            check(not launches[kname] or held[kname],
+                  f"{self.name}: no {kname} call held")
+        check(launches["lsh_hash"] == sum(self.hash.count.values()),
+              f"{self.name}: every hash must launch the hash kernel")
+        shapes = hash_records(self.hash, None, None)
+        print(f"{self.name}: flash launches by design {by_design}; lsh_hash "
+              f"by kind {self.hash.count}; every kernel held in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return shapes
 
 
 class HashCalls:
@@ -832,28 +988,21 @@ def _reset_launches():
 def syncs_of_one_submit(idx, rows, K):
     """Host syncs of one ``QueryPipeline.submit`` (after a warm one):
     the synchronizing CUDA calls torch reports in sync-debug "warn"
-    mode, with the lines of the port that made them."""
+    mode (the gate's ``device_pass.SyncLog``, the allocator's peak left
+    alone), with the lines that made them."""
     import torch
+    from repro_torch.analysis import device_pass
     from repro_torch.serving import QueryPipeline
     pipe = QueryPipeline(idx, len(rows), k_neighbors=K, depth=2)
     handle = lambda: [type("H", (), {"t_submit": 0.0})() for _ in rows]
     pipe.submit(list(rows), handle())
     pipe.drain()
     torch.cuda.synchronize()
-    src = str(ROOT / "src")
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            pipe.submit(list(rows), handle())
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+    with device_pass.SyncLog(peak=False) as log:
+        pipe.submit(list(rows), handle())
     pipe.drain()
-    hits = [w for w in caught if "synchroniz" in str(w.message)]
-    where = collections.Counter(
-        f"{os.path.relpath(w.filename, src) if w.filename.startswith(src) else os.path.basename(w.filename)}:{w.lineno}"
-        for w in hits)
-    return len(hits), dict(where)
+    return len(log.syncs), dict(collections.Counter(
+        s["where"] for s in log.syncs))
 
 
 def pipelined_stream(idx, stream, K, bucket):
@@ -944,6 +1093,181 @@ def serving_path(idx, svc, queries, K, bucket):
     check(launches["lsh_hash"] > 0 and launches["bucket_gather"] > 0,
           "a kernel of the serving path never launched")
     return launches
+
+
+def contracts_path(idx, queries, K, bucket, seed):
+    """The contract gate on the card.  On the index path's index (2**22
+    points, T = 2): the staged stages of one served bucket under the
+    trace pass -- exchanges 1, 0 and 1, host syncs each exactly the
+    manifest's named allowance, their ops and allocator peak printed --
+    and one insert of CONTRACTS_INSERT points, its store columns written
+    in place, then deleted again (the serving and durable paths that
+    follow see the index's live points as before, with 4,096 more
+    tombstoned tail rows).  Then ``repro_torch.analysis.check`` at its
+    check config (which must pass) and with each of its four seeded
+    violations (each must fail, naming its contract).  Every kernel's
+    first call at each width (PathCalls) is then held against its plain
+    version.  Returns its launch counts and the hash shapes' records."""
+    import numpy as np
+    import torch
+    from repro_torch.analysis import (check as gate, device_pass,
+                                      load_contracts, trace_pass)
+    contracts = load_contracts()
+    T = idx.cfg.n_tables
+    t_path = time.perf_counter()
+    _reset_launches()
+    calls = PathCalls("contracts").__enter__()
+    q = torch.as_tensor(queries[:bucket], device="cuda")
+
+    def phase(name, fn, exchanges):
+        tr = trace_pass.trace(idx, fn, device_pass.SyncLog())
+        check(tr.exchanges == exchanges,
+              f"{name}: {tr.exchanges} exchanges, not {exchanges}")
+        check(all(p["itemsize"] == 4 for p in tr.wire),
+              f"{name}: a 64-bit payload on the wire")
+        syncs = device_pass.sync_report(tr.syncs, name, T, contracts)
+        check(not syncs["violations"], "; ".join(syncs["violations"]))
+        where = collections.Counter(s["where"] for s in tr.syncs)
+        top = tr.max_intermediate
+        print(f"phase contracts {name}: exchanges {tr.exchanges}, host "
+              f"syncs {len(tr.syncs)} {dict(where)}, {tr.ops} ops, "
+              f"largest allocation {top['shape']} {top['dtype']} "
+              f"({top['op']}), allocator peak above inputs and outputs "
+              f"{tr.temp_bytes} bytes")
+        return tr.out
+
+    disp = phase("query_dispatch", lambda: idx.query_dispatch(q), 1)
+    scanned = phase("query_scan", lambda: idx.query_scan(
+        disp, k_neighbors=K), 0)
+    phase("query_return", lambda: idx.query_return(scanned), 1)
+
+    rng = np.random.default_rng(seed + 2)
+    new = rng.standard_normal((CONTRACTS_INSERT, idx.cfg.d),
+                              dtype=np.float32)
+    new *= np.float32(1.0 / math.sqrt(idx.cfg.d))
+    # on the card already, as the gate passes its inputs
+    new = torch.as_tensor(new, device="cuda")
+    cols = contracts["device"]["in_place"]["insert"]
+    before = device_pass.column_storages(idx.store, cols)
+    cap = idx.store.capacity
+    res = phase("insert", lambda: idx.insert(new), 1)
+    check(res.drops == 0 and res.n_inserted == CONTRACTS_INSERT,
+          "contracts insert: drops")
+    ip = device_pass.in_place_report(
+        before, device_pass.column_storages(idx.store, cols), cap,
+        idx.store.capacity, "insert", T, contracts)
+    check(not ip["violations"], "; ".join(ip["violations"]))
+    gone = idx.delete(np.arange(res.gid_start,
+                                res.gid_start + CONTRACTS_INSERT))
+    check(gone.n_points == CONTRACTS_INSERT, "contracts insert: delete")
+    print(f"phase contracts insert: {CONTRACTS_INSERT} points, columns "
+          f"{cols} in place at {cap} slots a shard; deleted again")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gate_") as tmp:
+        out = os.path.join(tmp, "report.json")
+        t0 = time.perf_counter()
+        check(gate.main(["--device", "cuda", "--json", out]) == 0,
+              "the contract gate failed on the card")
+        t_gate = time.perf_counter() - t0
+        with open(out) as f:
+            rep = json.load(f)
+        sm = rep["smem"]
+        check(sm["library_checked"] and sm["library_mismatches"] == 0,
+              "the library's shared memory differs from the plans'")
+        ph = rep["trace"]["phases"]
+        print("phase contracts gate: "
+              + "; ".join(
+                  f"{p} ops {rep['trace']['flatness']['ops'][p]} syncs "
+                  f"{ph[p]['2']['host_syncs']['count']} temp/shard "
+                  f"{ph[p]['2'].get('memory', {}).get('temp_bytes_per_shard')}"
+                  for p in ph)
+              + f"; smem {sm['largest']}; {t_gate:.1f} s")
+        needles = {"extra-collective": "all_to_all x3",
+                   "broken-donation": "not written in place",
+                   "jaxpr-growth": "not flat", "host-sync": "[host-sync]"}
+        for seeded, needle in needles.items():
+            rc = gate.main(["--device", "cuda", "--json", out,
+                            "--seed-violation", seeded])
+            with open(out) as f:
+                rep = json.load(f)
+            check(rc != 0 and any(needle in v for v in rep["violations"]),
+                  f"the gate passed with a seeded {seeded}")
+    torch.cuda.synchronize()
+    calls.__exit__()
+    launches = _launch_counts()
+    print(f"launches on the contracts path: {launches}")
+    check(launches["bucket_search"] > 0 and launches["lsh_hash"] > 0,
+          "a kernel of the contracts path never launched")
+    shapes = calls.hold(launches)
+    print(f"phase contracts: {time.perf_counter() - t_path:.1f} s, the gate "
+          f"passed and each of its 4 seeded violations failed")
+    return launches, shapes
+
+
+def example_path():
+    """``examples/serve_retrieval_torch.py`` (reduced gemma-7b) twice on
+    one snapshot directory with --pipelined: cold (--steps 2), then a
+    warm restart (--steps 4) that must resume the stream at step 2 and
+    answer steps 2 and 3, with drops 0 in both; ms a step.  Every
+    kernel's first call (PathCalls: the flash forward in each design it
+    launched, float32's "cuda_core" here) is then held against its plain
+    version.  Frees what it allocates.  Returns its launch counts and
+    the hash shapes' records."""
+    import importlib.util
+    import numpy as np
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "serve_retrieval_torch", ROOT / "examples" / "serve_retrieval_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t_path = time.perf_counter()
+    _reset_launches()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as snap, \
+            PathCalls("example") as calls:
+        for run, steps in zip(("cold", "warm"), EXAMPLE_STEPS):
+            t0 = time.perf_counter()
+            runs[run] = example.main(
+                ["--snapshot-dir", snap, "--pipelined", "--steps",
+                 str(steps)])
+            runs[run]["s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    cold, warm = runs["cold"], runs["warm"]
+    ex = example.parse([])
+    check(cold["warm"] is None and cold["resumed_at"] == 0
+          and len(cold["steps"]) == EXAMPLE_STEPS[0],
+          "example: the cold run")
+    check(warm["warm"] is not None and warm["resumed_at"] == EXAMPLE_STEPS[0]
+          and warm["rows_at_start"] == ex.docs + EXAMPLE_STEPS[0]
+          * ex.insert_size and len(warm["steps"])
+          == EXAMPLE_STEPS[1] - EXAMPLE_STEPS[0],
+          "example: the warm restart did not resume the stream")
+    for run in runs.values():
+        check(run["drops"] == 0, "example: drops")
+        for st in run["steps"]:
+            g, d = st["gids"], st["dists"]
+            check(g.shape == (ex.batch_size, ex.k_neighbors)
+                  and len(st["new_gids"]) == ex.insert_size,
+                  "example: answer shapes")
+            hit = g != IMAX
+            check(np.all(np.isfinite(d[hit])) and np.all(np.isinf(d[~hit])),
+                  "example: distances finite exactly where a gid is")
+    ms = [1e3 * (st["insert_s"] + st["query_s"])
+          for run in runs.values() for st in run["steps"]]
+    launches = _launch_counts()
+    print(f"phase example: cold {cold['s']:.1f} s, warm {warm['s']:.1f} s "
+          f"(resumed at step {warm['resumed_at']}), ms a step (insert of "
+          f"{ex.insert_size} documents and a query batch of "
+          f"{ex.batch_size}) {', '.join(f'{m:.1f}' for m in ms)}; "
+          f"self-retrieval {cold['hits']} + {warm['hits']}; launches "
+          f"{launches}; {time.perf_counter() - t_path:.1f} s")
+    check(launches["flash_attention"] > 0 and launches["lsh_hash"] > 0
+          and launches["bucket_search"] > 0,
+          "a kernel of the example path never launched")
+    shapes = calls.hold(launches)
+    del runs, cold, warm, calls
+    torch.cuda.empty_cache()
+    return launches, shapes
 
 
 def durable_path(state, queries, K, bucket, seed):
@@ -3886,12 +4210,9 @@ class Regions:
 def shape_recorder(captured, prefix, fn):
     """fn, recording the arguments of its first call at each (Sq, Sk,
     causal) under f"{prefix} {Sq}x{Sk}" (" causal" appended if causal)."""
-    def wrapped(q, k, v, *a, **kw):
-        c = " causal" if kw.get("causal", True) else ""
-        captured.setdefault(f"{prefix} {q.shape[2]}x{k.shape[2]}{c}",
-                            ((q, k, v, *a), kw))
-        return fn(q, k, v, *a, **kw)
-    return wrapped
+    return keyed_recorder(
+        captured, prefix, fn, lambda q, k, *a, **kw: f"{q.shape[2]}x"
+        f"{k.shape[2]}" + (" causal" if kw.get("causal", True) else ""))
 
 
 def _serve_run(model, tokens, S, T, what, stubs=None):
@@ -4606,6 +4927,10 @@ def main() -> int:
     # earlier path follows the same work as it did before it was added
     oracle = (idx.cfg, data, queries[:bucket], ctx.pop("served"))
     del data
+    launches, shapes = contracts_path(idx, queries, K, bucket, args.seed)
+    hash_launches["contracts"] = launches["lsh_hash"]
+    hash_shapes += [dict(r, path="contracts") for r in shapes]
+    # the gate's SyncLogs reset the allocator's peak: reset it after them
     torch.cuda.reset_peak_memory_stats()
     serving_path(idx, ctx["svc"], queries, K, bucket)
     state = {"idx": idx, "svc": ctx.pop("svc")}
@@ -4670,6 +4995,10 @@ def main() -> int:
         hmma["ssd_scan_bwd"])
     del bwd_args
     torch.cuda.empty_cache()
+    launches, shapes = example_path()
+    hash_launches["example"] = launches["lsh_hash"]
+    hash_shapes += [dict(r, path="example") for r in shapes]
+    del shapes
 
     launches, by_design, _ = train_dense_path(args, captured)
     fa_args, fa_kw = captured.pop("flash_attention_bwd")

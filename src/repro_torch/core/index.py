@@ -332,15 +332,24 @@ class ScannedBatch:
 
 
 def _host_query_result(gtopd, gtopg, gemit, fq, load, drops) -> QueryResult:
-    gtopd = gtopd.cpu().numpy()
+    """The answers on the host, fetched in one copy of int32 words."""
+    m, K = gtopg.shape
+    S = load.shape[0]
+    # host-sync: query-answers
+    words = torch.cat([
+        _f2i(gtopd).reshape(-1), gtopg.reshape(-1), gemit.reshape(-1),
+        fq.reshape(-1).to(torch.int32), load.to(torch.int32),
+        drops.sum().to(torch.int32).reshape(1)]).cpu().numpy()
+    cut = np.cumsum([m * K, m * K, m, m, S])
+    d2, gid, emit, fq_h, load_h, drops_h = np.split(words, cut)
+    d2 = d2.view(np.float32).reshape(m, K)
     return QueryResult(
-        topk_dist=np.sqrt(np.where(gtopd < np.float32(3e38), gtopd,
-                                   np.inf)),
-        topk_gid=gtopg.cpu().numpy(),
-        n_within_cr=gemit.cpu().numpy(),
-        fq=fq.cpu().numpy().reshape(-1),
-        query_load=load.cpu().numpy(),
-        drops=int(drops.sum()))
+        topk_dist=np.sqrt(np.where(d2 < np.float32(3e38), d2, np.inf)),
+        topk_gid=gid.reshape(m, K),
+        n_within_cr=emit,
+        fq=fq_h.astype(np.int64),
+        query_load=load_h.astype(np.int64),
+        drops=int(drops_h[0]))
 
 
 class DistributedLSHIndex:
@@ -510,8 +519,7 @@ class DistributedLSHIndex:
     # ------------------------------------------------------------------
     def insert(self, points, gids=None) -> InsertResult:
         """Stream a batch of points (n, d) into the routed store."""
-        cfg = self.cfg
-        S, T, dev = cfg.n_shards, cfg.n_tables, self.device
+        cfg, dev = self.cfg, self.device
         points = torch.as_tensor(points, dtype=torch.float32, device=dev)
         n, d = points.shape
         if d != cfg.d:
@@ -533,7 +541,15 @@ class DistributedLSHIndex:
             gid_start = int(g64.min()) if n else None
             if n:
                 self._next_gid = max(self._next_gid, int(g64.max()) + 1)
+        return self._insert(points, g, gid_start)
 
+    def _insert(self, points: torch.Tensor, g: torch.Tensor,
+                gid_start: Optional[int]) -> InsertResult:
+        """The insert's device work, after its arguments were checked:
+        points (n, d) and gids (n,) int32 on the index's device."""
+        cfg = self.cfg
+        S, T, dev = cfg.n_shards, cfg.n_tables, self.device
+        n, d = points.shape
         if self.store is None:
             self.init_store(self._store_capacity(n * T))
         else:
@@ -594,6 +610,7 @@ class DistributedLSHIndex:
         fit = rv & (rank < n_free)
         s_drops = (rv & ~fit).sum(dim=-1)
         target = torch.gather(free_order, -1, torch.clamp(rank, 0, cap - 1))
+        # host-sync: insert-fitted-rows
         si, ri = torch.nonzero(fit, as_tuple=True)
         ti = target[si, ri]
         rows = r[si, ri]                                   # (n_fit, d+5)
@@ -604,10 +621,14 @@ class DistributedLSHIndex:
         st.gid[si, ti] = rows[:, d + 2]
         st.table[si, ti] = rows[:, d + 3]
         st.key[si, ti] = rows[:, d + 4]
-        st.valid[si, ti] = True
+        # a device value: a Python True would be copied to the card first,
+        # a host sync
+        st.valid[si, ti] = torch.ones_like(ti, dtype=torch.bool)
         if ti.numel():
+            # host-sync: insert-high-water
             self._used = max(self._used, int(ti.max()) + 1)
 
+        # host-sync: insert-stats
         stats = torch.stack([
             st.valid.sum(dim=-1), fit.sum(dim=-1),
             (fit & (rt == 0)).sum(dim=-1), d_drops + s_drops]).cpu().numpy()
@@ -638,21 +659,35 @@ class DistributedLSHIndex:
             raise RuntimeError("insert() or build() first")
         gids = np.asarray(gids, np.int64).reshape(-1)
         check_gid_range(gids)
-        gids = gids.astype(np.int32)
+        return self._delete(np.unique(gids).astype(np.int32))
+
+    def _delete(self, want_host: np.ndarray) -> DeleteResult:
+        """The delete's device work: tombstone every live row whose gid is
+        in the sorted distinct ``want_host``.  Membership is a binary
+        search of each stored gid in the upload, so the work and the host
+        syncs (the upload and one fetch of the counts) do not depend on
+        how many rows match."""
         st = self.store
-        want = torch.as_tensor(gids, device=self.device)
-        hit = torch.isin(st.gid, want) & st.valid
+        S = self.cfg.n_shards
+        n_want = len(want_host)
+        want = torch.as_tensor(want_host, device=self.device)
+        pos = torch.searchsorted(want, st.gid).clamp_(max=max(n_want - 1, 0))
+        hit = st.valid & (want[pos] == st.gid) if n_want else \
+            torch.zeros_like(st.valid)
         # per requested gid: did any shard hold a live row of it?
-        anyhit = torch.isin(want, st.gid[hit])
-        hit_sorted = hit[:, :st.n_sorted].sum()
+        seen = torch.zeros((n_want + 1,), dtype=torch.bool,
+                           device=self.device)
+        at = torch.where(hit, pos, n_want).reshape(-1)
+        seen.scatter_(0, at, torch.ones_like(at, dtype=torch.bool))
+        counts = torch.stack([hit.sum(), hit[:, :st.n_sorted].sum(),
+                              seen[:n_want].sum()])
         st.valid.logical_and_(~hit)
-        load = st.valid.sum(dim=-1)
-        n_deleted = int(hit.sum())
-        n_points = len(np.unique(gids[anyhit.cpu().numpy()]))
-        load = load.cpu().numpy().astype(np.int64)
+        # host-sync: delete-counts
+        counts = torch.cat([st.valid.sum(dim=-1), counts]).cpu().numpy()
+        load = counts[:S].astype(np.int64)
+        n_deleted, n_sorted_hits, n_points = (int(v) for v in counts[S:])
         self._shard_load = load
         self._n_live -= n_deleted
-        n_sorted_hits = int(hit_sorted)
         self._sorted_live -= n_sorted_hits
         self._tail_live -= n_deleted - n_sorted_hits
         return DeleteResult(n_deleted=n_deleted, n_points=n_points,
@@ -881,6 +916,7 @@ class DistributedLSHIndex:
         # of its S * Cq slots per shard): regenerate offsets and scan only
         # the live rows, moved to the front in their order.  Their count
         # is read back once (a host sync) to size the work.
+        # host-sync: scan-live-rows
         n_rows = max(1, int(rvalid.sum(dim=-1).max()))
         live = torch.argsort(rvalid.to(torch.int8), dim=-1, descending=True,
                              stable=True)[:, :n_rows]

@@ -5,7 +5,8 @@ CSR gather) take tensors with a leading shard axis, so one launch
 covers all S shards.  On a CUDA tensor a wrapper launches its kernel
 (``csrc/bucket_search.cu``, built on first use) or raises; on a CPU
 tensor it runs the kernel's plain version from ``ref.py``.  Each wrapper
-counts its kernel launches in ``launches``.
+counts its kernel launches in ``launches``, and a dispatch counter sees
+its call as one op on either device (``watch.opaque``).
 
 The full scan matches first: a probe table per (shard, tile of TILE_R
 live rows) -- key (table, hi, lo) -> mask of the tile's rows -- filters
@@ -21,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, watch
 from repro_torch.kernels.types import QueryBatch, StoreView
 
 SMEM_LIMIT = 232448    # dynamic shared memory one H100 block may use
@@ -160,6 +161,7 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+@watch.opaque("bucket_search")
 def bucket_search_cuda(*, query: QueryBatch, store: StoreView, cr2: float,
                        L: int, K: int = 1):
     """Masked top-K full scan over every stored row (see
@@ -220,6 +222,7 @@ def bucket_search_cuda(*, query: QueryBatch, store: StoreView, cr2: float,
 bucket_search_cuda.launches = 0
 
 
+@watch.opaque("bucket_gather")
 def bucket_gather_cuda(q, qsq, start, end, p, psq, gid, pvalid,
                        cr2: float, *, K: int):
     """CSR gather over a bucket-sorted region (see ``ref.bucket_gather_ref``

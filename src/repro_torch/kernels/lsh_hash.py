@@ -3,7 +3,8 @@
 ``lsh_hash_cuda`` launches ``csrc/lsh_hash.cu`` (built on first use) on
 CUDA tensors or raises; on CPU tensors it runs the kernel's plain
 version, ``ref.lsh_hash_ref``.  It counts its kernel launches in
-``launches``.  Both compute hash_h's arithmetic bit for bit: every
+``launches``, and a dispatch counter sees its call as one op on either
+device (``watch.opaque``).  Both compute hash_h's arithmetic bit for bit: every
 product rounded once, the products summed in ``tree_sum``'s pairwise
 order, then ``+ b``, ``/ w`` (a division, where the TPU kernel multiplies
 by 1/w) and a floor.  So the index hashes through it: the insert, the
@@ -23,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, ref, watch
 
 ROWS = 2               # rows a thread sums where one chunk is the dot
 MAX_COLS = 8           # output columns a thread sums
@@ -208,6 +209,7 @@ def _tables(x, a, b, table):
     return T, max(1, n // max(1, entries))
 
 
+@watch.opaque("lsh_hash")
 def lsh_hash_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
                   w: float, table: Optional[torch.Tensor] = None,
                   floor: bool = True) -> torch.Tensor:

@@ -135,6 +135,7 @@ def bucket_gather_ref(q, qsq, start, end, p, psq, gid, pvalid,
     best = sentinel_key(q.device).expand(batch + (E, K)).clone()
     cnt = torch.zeros(batch + (E,), dtype=torch.int32, device=q.device)
     span = (end - start).to(torch.int64)
+    # host-sync: ref-gather-longest
     longest = int(span.max()) if span.numel() else 0
     for o in range(longest):
         inside = o < span

@@ -1972,3 +1972,25 @@ def test_rglru_block_bf16_on_the_card_equals_the_cpu():
             hs = float(want[1]["h"].abs().max())
             np.testing.assert_allclose(got[1]["h"].cpu(), want[1]["h"],
                                        rtol=1e-3, atol=1e-3 * hs)
+
+
+@pytest.mark.gpu
+def test_contract_gate_holds_on_the_card(tmp_path):
+    """The gate at its check config on the card: every phase makes
+    exactly the host syncs its manifest names -- three for an insert,
+    two for a delete (its upload and one fetch of its counts), whatever
+    T -- the allocator within the reference's temp budgets, the bucket
+    library's shared memory equal to its plans'."""
+    _cuda()
+    import json
+    from repro_torch.analysis import check
+    out = str(tmp_path / "report.json")
+    assert check.main(["--device", "cuda", "--json", out]) == 0
+    with open(out) as f:
+        rep = json.load(f)
+    counts = {p: {T: r["host_syncs"]["count"] for T, r in by_T.items()}
+              for p, by_T in rep["trace"]["phases"].items()}
+    assert counts["insert"] == {"1": 3, "2": 3, "4": 3}, counts
+    assert counts["delete"] == {"1": 2, "2": 2, "4": 2}, counts
+    assert rep["smem"]["library_checked"]
+    assert rep["smem"]["library_mismatches"] == 0

@@ -2,10 +2,11 @@
 
 Importing every module of ``repro_torch`` (in a fresh interpreter) must
 leave ``jax``, ``repro`` and ``ml_dtypes`` out of ``sys.modules``, and no
-line of the port or of ``chip_smoke.py`` may import them.  Every entry point -- the
+line of the port, of its examples or of ``chip_smoke.py`` may import them.  Every entry point -- the
 index, the model, the retrieval service, the serve CLI, the simulator,
-the oracle, the datasets -- built without a ``device`` on a machine with
-no card raises instead of running on the CPU.
+the oracle, the datasets, the contract gate, the serving example --
+built without a ``device`` on a machine with no card raises instead of
+running on the CPU.
 """
 import ast
 import os
@@ -49,7 +50,12 @@ def test_importing_the_port_loads_no_jax():
               "repro_torch.launch.train", "repro_torch.tree",
               "repro_torch.launch.steps", "repro_torch.launch.dryrun",
               "repro_torch.launch.op_cost", "repro_torch.launch.hlo_analysis",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.analysis",
+              "repro_torch.analysis.manifest",
+              "repro_torch.analysis.repolint",
+              "repro_torch.analysis.trace_pass",
+              "repro_torch.analysis.device_pass",
+              "repro_torch.analysis.check", "repro_torch.kernels.watch"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -67,6 +73,8 @@ def test_importing_the_port_loads_no_jax():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(_REPO)) for p in _PORT.rglob("*.py")]
+    + [str(p.relative_to(_REPO))
+       for p in (_REPO / "examples").glob("*_torch.py")]
     + ["chip_smoke.py"]))
 def test_no_source_line_imports_jax_or_the_reference(path):
     tree = ast.parse((_REPO / path).read_text())
@@ -228,6 +236,7 @@ NOT_PORTED = {
     "runtime": {},
     "models": {},
     "launch": {},
+    "analysis": {},
 }
 
 
@@ -288,3 +297,22 @@ def test_simulator_oracle_and_datasets_without_device_need_a_card():
                lambda **kw: planted_random(32, 4, d=8, **kw),
                lambda **kw: dedup_embeddings(x, r=0.3, **kw)):
         _needs_a_card(fn, lambda: fn(device="cpu"))
+
+
+def test_contract_gate_and_serving_example_without_device_need_a_card(
+        tmp_path):
+    import importlib.util
+    from repro_torch.analysis import check
+    report = str(tmp_path / "report.json")
+    # the lint and the shared-memory plans need no device
+    assert check.main(["--skip-trace", "--json", report]) == 0
+    spec = importlib.util.spec_from_file_location(
+        "serve_retrieval_torch", _REPO / "examples" / "serve_retrieval_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        check.main(["--json", report])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(["--arch", "mamba2-130m", "--docs", "64"])
