@@ -32,6 +32,12 @@ sort on a 64-bit key whose order is the lex order; packed bucket words
 are ordered as uint32.  Host syncs: an insert and a delete read their
 counts back and a query reads its answers back; the scan itself stays on
 the device.  The store is updated in place.
+
+Each stage of a query runs inside a named span of ``runtime/spans.py``
+(``lsh.*``; the names are listed there), and the rows the dispatch ships
+and the receive side processes are counted from numbers already on the
+host.
+Both record only while a profile or ``spans.recording()`` is on.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from repro_torch.core.offsets import (query_offsets, query_offsets_by_table,
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.types import QueryBatch, StoreView, sq_norms
+from repro_torch.runtime import spans
 
 INF = kref.F32_MAX
 IMAX = kref.IMAX
@@ -332,24 +339,27 @@ class ScannedBatch:
 
 
 def _host_query_result(gtopd, gtopg, gemit, fq, load, drops) -> QueryResult:
-    """The answers on the host, fetched in one copy of int32 words."""
+    """The answers on the host, fetched in one copy of int32 words.
+    Counts the dispatch's live routed rows (the sum of ``fq``)."""
     m, K = gtopg.shape
     S = load.shape[0]
-    # host-sync: query-answers
-    words = torch.cat([
-        _f2i(gtopd).reshape(-1), gtopg.reshape(-1), gemit.reshape(-1),
-        fq.reshape(-1).to(torch.int32), load.to(torch.int32),
-        drops.sum().to(torch.int32).reshape(1)]).cpu().numpy()
-    cut = np.cumsum([m * K, m * K, m, m, S])
-    d2, gid, emit, fq_h, load_h, drops_h = np.split(words, cut)
-    d2 = d2.view(np.float32).reshape(m, K)
-    return QueryResult(
-        topk_dist=np.sqrt(np.where(d2 < np.float32(3e38), d2, np.inf)),
-        topk_gid=gid.reshape(m, K),
-        n_within_cr=emit,
-        fq=fq_h.astype(np.int64),
-        query_load=load_h.astype(np.int64),
-        drops=int(drops_h[0]))
+    with spans.span("lsh.fetch"):
+        # host-sync: query-answers
+        words = torch.cat([
+            _f2i(gtopd).reshape(-1), gtopg.reshape(-1), gemit.reshape(-1),
+            fq.reshape(-1).to(torch.int32), load.to(torch.int32),
+            drops.sum().to(torch.int32).reshape(1)]).cpu().numpy()
+        cut = np.cumsum([m * K, m * K, m, m, S])
+        d2, gid, emit, fq_h, load_h, drops_h = np.split(words, cut)
+        d2 = d2.view(np.float32).reshape(m, K)
+        spans.count("lsh.dispatch.rows_live", fq_h)
+        return QueryResult(
+            topk_dist=np.sqrt(np.where(d2 < np.float32(3e38), d2, np.inf)),
+            topk_gid=gid.reshape(m, K),
+            n_within_cr=emit,
+            fq=fq_h.astype(np.int64),
+            query_load=load_h.astype(np.int64),
+            drops=int(drops_h[0]))
 
 
 class DistributedLSHIndex:
@@ -861,139 +871,172 @@ class DistributedLSHIndex:
     def _dispatch(self, q: torch.Tensor, m: int, Cq: int):
         """Stage 1: hash every local query's T x L offsets and route one
         row per distinct Key per table through ONE exchange."""
-        cfg = self.cfg
-        S, L, T, d = cfg.n_shards, cfg.L, cfg.n_tables, cfg.d
-        m_loc = m // S
-        dev = self.device
-        q_loc = q.reshape(S, m_loc, d)
-        qid = torch.arange(m, dtype=torch.int64, device=dev).reshape(
-            S, m_loc)
-        # (T, S, m_loc, L, d) offsets; table t from its own base key
-        offs = query_offsets(self.stacked_keys[:, None, None, :],
-                             qid.unsqueeze(0), q_loc.unsqueeze(0), L, cfg.r)
-        keyv, packed = self._keys_of(offs.reshape(T, S * m_loc * L, d))
-        keyv = keyv.reshape(T, S, m_loc, L).permute(1, 2, 0, 3)
-        packed = packed.reshape(T, S, m_loc, L, 2).permute(1, 2, 0, 3, 4)
-        if cfg.scheme == Scheme.SIMPLE:
-            eq = (packed[..., :, None, :] == packed[..., None, :, :]).all(-1)
-        else:
-            eq = keyv[..., :, None] == keyv[..., None, :]
-        ar = torch.arange(L, device=dev)
-        earlier = ar[:, None] > ar[None, :]
-        live = ~(eq & earlier).any(dim=-1)             # (S, m_loc, T, L)
-        nr = m_loc * T * L
-        dest = torch.remainder(keyv, S).reshape(S, nr)
-        rows_q = q_loc.repeat_interleave(T * L, dim=1)
-        rows_id = qid.to(torch.int32).repeat_interleave(T * L, dim=1)
-        rows_t = torch.arange(T, dtype=torch.int32, device=dev
-                              ).repeat_interleave(L).repeat(m_loc
-                                                            ).expand(S, nr)
-        slot, keep, drops = dispatch_slots(dest, live.reshape(S, nr), S, Cq)
-        fq_local = keep.reshape(S, m_loc, T * L).sum(dim=-1)
-        payload = torch.cat([_f2i(rows_q), rows_id[..., None],
-                             rows_t[..., None]], dim=-1)
-        r = self.a2a(scatter_rows(slot, keep, payload, S * Cq, IMAX))
-        return r, fq_local, drops
+        with spans.span("lsh.dispatch"):
+            cfg = self.cfg
+            S, L, T, d = cfg.n_shards, cfg.L, cfg.n_tables, cfg.d
+            m_loc = m // S
+            dev = self.device
+            q_loc = q.reshape(S, m_loc, d)
+            qid = torch.arange(m, dtype=torch.int64, device=dev).reshape(
+                S, m_loc)
+            # (T, S, m_loc, L, d) offsets; table t from its own base key
+            with spans.span("lsh.dispatch.offsets"):
+                offs = query_offsets(self.stacked_keys[:, None, None, :],
+                                     qid.unsqueeze(0), q_loc.unsqueeze(0), L,
+                                     cfg.r)
+            with spans.span("lsh.dispatch.hash"):
+                keyv, packed = self._keys_of(offs.reshape(T, S * m_loc * L,
+                                                          d))
+            with spans.span("lsh.dispatch.route"):
+                keyv = keyv.reshape(T, S, m_loc, L).permute(1, 2, 0, 3)
+                packed = packed.reshape(T, S, m_loc, L, 2).permute(
+                    1, 2, 0, 3, 4)
+                if cfg.scheme == Scheme.SIMPLE:
+                    eq = (packed[..., :, None, :]
+                          == packed[..., None, :, :]).all(-1)
+                else:
+                    eq = keyv[..., :, None] == keyv[..., None, :]
+                ar = torch.arange(L, device=dev)
+                earlier = ar[:, None] > ar[None, :]
+                live = ~(eq & earlier).any(dim=-1)     # (S, m_loc, T, L)
+                nr = m_loc * T * L
+                dest = torch.remainder(keyv, S).reshape(S, nr)
+                rows_q = q_loc.repeat_interleave(T * L, dim=1)
+                rows_id = qid.to(torch.int32).repeat_interleave(T * L, dim=1)
+                rows_t = torch.arange(T, dtype=torch.int32, device=dev
+                                      ).repeat_interleave(L).repeat(
+                                          m_loc).expand(S, nr)
+                slot, keep, drops = dispatch_slots(dest, live.reshape(S, nr),
+                                                   S, Cq)
+                fq_local = keep.reshape(S, m_loc, T * L).sum(dim=-1)
+            with spans.span("lsh.exchange"):
+                payload = torch.cat([_f2i(rows_q), rows_id[..., None],
+                                     rows_t[..., None]], dim=-1)
+                r = self.a2a(scatter_rows(slot, keep, payload, S * Cq, IMAX))
+            spans.count("lsh.dispatch.rows_shipped", S * S * Cq)
+            return r, fq_local, drops
 
     def _scan(self, r: torch.Tensor, m: int, K: int):
         """Stage 2: receive-side hash-once + bucket search + per-qid union
         across tables.  No exchange."""
-        cfg = self.cfg
-        S, L, T, d = cfg.n_shards, cfg.L, cfg.n_tables, cfg.d
-        dev = self.device
-        st = self.store
-        rq = _i2f(r[..., :d])                          # (S, R, d)
-        rid = r[..., d]
-        rtab = r[..., d + 1]
-        rvalid = rid != IMAX
-        recv_load = rvalid.sum(dim=-1)
-        # two rows of one (query, table) can land on one shard when their
-        # Keys collide mod S; each row probes every bucket its table owns
-        # here, so keep the first
-        rvalid = first_occurrence_mask(
-            torch.where(rvalid, rid * T + rtab, IMAX), rvalid)
-        # The routed buffer is mostly padding (a bucket fills a few dozen
-        # of its S * Cq slots per shard): regenerate offsets and scan only
-        # the live rows, moved to the front in their order.  Their count
-        # is read back once (a host sync) to size the work.
-        # host-sync: scan-live-rows
-        n_rows = max(1, int(rvalid.sum(dim=-1).max()))
-        live = torch.argsort(rvalid.to(torch.int8), dim=-1, descending=True,
-                             stable=True)[:, :n_rows]
-        rq = torch.gather(rq, 1, live[..., None].expand(-1, -1, d))
-        rid, rtab, rvalid = (torch.gather(a, 1, live)
-                             for a in (rid, rtab, rvalid))
-        rid_safe = torch.where(rvalid, rid, 0)
-        rtab_safe = torch.where(rvalid, rtab, 0)
+        with spans.span("lsh.scan"):
+            cfg = self.cfg
+            S, L, T, d = cfg.n_shards, cfg.L, cfg.n_tables, cfg.d
+            dev = self.device
+            st = self.store
+            with spans.span("lsh.scan.live_rows"):
+                rq = _i2f(r[..., :d])                  # (S, R, d)
+                rid = r[..., d]
+                rtab = r[..., d + 1]
+                rvalid = rid != IMAX
+                recv_load = rvalid.sum(dim=-1)
+                # two rows of one (query, table) can land on one shard when
+                # their Keys collide mod S; each row probes every bucket its
+                # table owns here, so keep the first
+                rvalid = first_occurrence_mask(
+                    torch.where(rvalid, rid * T + rtab, IMAX), rvalid)
+                # The routed buffer is mostly padding (a bucket fills a few
+                # dozen of its S * Cq slots per shard): regenerate offsets
+                # and scan only the live rows, moved to the front in their
+                # order.  Their counts by shard are read back once (a host
+                # sync); the busiest shard's sizes the work.
+                # host-sync: scan-live-rows
+                kept = rvalid.sum(dim=-1).cpu().numpy()
+                n_rows = max(1, int(kept.max()))
+                spans.count("lsh.scan.rows_live", kept)
+                spans.count("lsh.scan.rows_processed", S * n_rows)
+                live = torch.argsort(rvalid.to(torch.int8), dim=-1,
+                                     descending=True, stable=True)[:, :n_rows]
+                rq = torch.gather(rq, 1, live[..., None].expand(-1, -1, d))
+                rid, rtab, rvalid = (torch.gather(a, 1, live)
+                                     for a in (rid, rtab, rvalid))
+                rid_safe = torch.where(rvalid, rid, 0)
+                rtab_safe = torch.where(rvalid, rtab, 0)
 
-        roffs = query_offsets_by_table(self.stacked_keys, rtab_safe,
-                                       rid_safe, rq, L, cfg.r)  # (S,R,L,d)
-        rkey, rpacked = self._keys_of(roffs, rtab_safe)
-        me = torch.arange(S, device=dev)[:, None, None]
-        mine = (torch.remainder(rkey, S) == me) & rvalid[..., None]
-        eqp = (rpacked[..., :, None, :] == rpacked[..., None, :, :]).all(-1)
-        ar = torch.arange(L, device=dev)
-        firstocc = ~(eqp & (ar[:, None] > ar[None, :])).any(dim=-1)
-        probe = mine & firstocc                        # (S, R, L)
+            with spans.span("lsh.scan.offsets"):
+                roffs = query_offsets_by_table(
+                    self.stacked_keys, rtab_safe, rid_safe, rq, L,
+                    cfg.r)                             # (S, R, L, d)
+            with spans.span("lsh.scan.hash"):
+                rkey, rpacked = self._keys_of(roffs, rtab_safe)
+            with spans.span("lsh.scan.probe"):
+                me = torch.arange(S, device=dev)[:, None, None]
+                mine = (torch.remainder(rkey, S) == me) & rvalid[..., None]
+                eqp = (rpacked[..., :, None, :]
+                       == rpacked[..., None, :, :]).all(-1)
+                ar = torch.arange(L, device=dev)
+                firstocc = ~(eqp & (ar[:, None] > ar[None, :])).any(dim=-1)
+                probe = mine & firstocc                # (S, R, L)
 
-        R = rq.shape[1]
-        qbatch = QueryBatch(q=rq, qsq=sq_norms(rq),
-                            buckets=rpacked.reshape(S, R, 2 * L),
-                            probe=probe.to(torch.int32), table=rtab_safe)
-        # slots past the high-water mark were never written: leave them out
-        used = lambda a: a[:, :max(self._used, st.n_sorted)]
-        sview = StoreView(points=used(st.x), psq=used(st.psq),
-                          buckets=used(st.packed), gid=used(st.gid),
-                          valid=used(st.valid.to(torch.int32)),
-                          table=used(st.table),
-                          bucket_start=used(st.bucket_start),
-                          bucket_end=used(st.bucket_end),
-                          n_sorted=st.n_sorted)
-        row_d, row_g, row_emit = kops.bucket_search(
-            query=qbatch, store=sview,
-            cr2=float(np.float32((cfg.c * cfg.r) ** 2)), L=L, k=K,
-            force_full_scan=not self.use_csr)
+                R = rq.shape[1]
+                qbatch = QueryBatch(q=rq, qsq=sq_norms(rq),
+                                    buckets=rpacked.reshape(S, R, 2 * L),
+                                    probe=probe.to(torch.int32),
+                                    table=rtab_safe)
+                # slots past the high-water mark were never written: leave
+                # them out
+                used = lambda a: a[:, :max(self._used, st.n_sorted)]
+                sview = StoreView(points=used(st.x), psq=used(st.psq),
+                                  buckets=used(st.packed), gid=used(st.gid),
+                                  valid=used(st.valid.to(torch.int32)),
+                                  table=used(st.table),
+                                  bucket_start=used(st.bucket_start),
+                                  bucket_end=used(st.bucket_end),
+                                  n_sorted=st.n_sorted)
+            with spans.span("lsh.scan.bucket"):
+                row_d, row_g, row_emit = kops.bucket_search(
+                    query=qbatch, store=sview,
+                    cr2=float(np.float32((cfg.c * cfg.r) ** 2)), L=L, k=K,
+                    force_full_scan=not self.use_csr)
 
-        # ---- local union across tables: one live row per (qid, table)
-        # on this shard; scatter per-row top-Ks into (qid, table) slots
-        # and merge the T tables (dedup by gid) ----
-        idx = torch.where(rvalid, rid * T + rtab, m * T).to(torch.int64)
-        loc_d = torch.full((S, m * T + 1, K), INF, device=dev)
-        loc_g = torch.full((S, m * T + 1, K), IMAX, dtype=torch.int32,
-                           device=dev)
-        loc_d.scatter_(1, idx[..., None].expand(-1, -1, K),
-                       torch.where(rvalid[..., None], row_d, INF))
-        loc_g.scatter_(1, idx[..., None].expand(-1, -1, K),
-                       torch.where(rvalid[..., None], row_g, IMAX))
-        loc_d, loc_g = merge_topk(loc_d[:, :m * T].reshape(S, m, T * K),
-                                  loc_g[:, :m * T].reshape(S, m, T * K), K)
-        emit = torch.zeros((S, m + 1), dtype=torch.int32, device=dev)
-        emit.scatter_add_(1, torch.where(rvalid, rid, m).to(torch.int64),
-                          torch.where(rvalid, row_emit, 0))
-        ret = torch.cat([_f2i(loc_d), loc_g, emit[:, :m, None]], dim=-1)
-        return ret, recv_load
+            # ---- local union across tables: one live row per (qid, table)
+            # on this shard; scatter per-row top-Ks into (qid, table) slots
+            # and merge the T tables (dedup by gid) ----
+            with spans.span("lsh.scan.union"):
+                idx = torch.where(rvalid, rid * T + rtab, m * T).to(
+                    torch.int64)
+                loc_d = torch.full((S, m * T + 1, K), INF, device=dev)
+                loc_g = torch.full((S, m * T + 1, K), IMAX,
+                                   dtype=torch.int32, device=dev)
+                loc_d.scatter_(1, idx[..., None].expand(-1, -1, K),
+                               torch.where(rvalid[..., None], row_d, INF))
+                loc_g.scatter_(1, idx[..., None].expand(-1, -1, K),
+                               torch.where(rvalid[..., None], row_g, IMAX))
+                loc_d, loc_g = merge_topk(
+                    loc_d[:, :m * T].reshape(S, m, T * K),
+                    loc_g[:, :m * T].reshape(S, m, T * K), K)
+                emit = torch.zeros((S, m + 1), dtype=torch.int32, device=dev)
+                emit.scatter_add_(1, torch.where(rvalid, rid, m).to(
+                    torch.int64), torch.where(rvalid, row_emit, 0))
+                ret = torch.cat([_f2i(loc_d), loc_g, emit[:, :m, None]],
+                                dim=-1)
+            return ret, recv_load
 
     def _return(self, ret: torch.Tensor, m: int, K: int):
         """Stage 3: ONE routed exchange ships each qid's local top-K (+
         emit count) to its owner shard, which merges the S lists."""
-        S = self.cfg.n_shards
-        m_loc = m // S
-        recv = self.a2a(ret).reshape(S, S, m_loc, 2 * K + 1)
-        cand_d = _i2f(recv[..., :K]).permute(0, 2, 1, 3).reshape(
-            S, m_loc, S * K)
-        cand_g = recv[..., K:2 * K].permute(0, 2, 1, 3).reshape(
-            S, m_loc, S * K)
-        gtopd, gtopg = merge_topk(cand_d, cand_g, K)
-        gemit = recv[..., 2 * K].sum(dim=1, dtype=torch.int32)
-        return gtopd.reshape(m, K), gtopg.reshape(m, K), gemit.reshape(m)
+        with spans.span("lsh.return"):
+            S = self.cfg.n_shards
+            m_loc = m // S
+            with spans.span("lsh.exchange"):
+                recv = self.a2a(ret).reshape(S, S, m_loc, 2 * K + 1)
+            with spans.span("lsh.return.merge"):
+                cand_d = _i2f(recv[..., :K]).permute(0, 2, 1, 3).reshape(
+                    S, m_loc, S * K)
+                cand_g = recv[..., K:2 * K].permute(0, 2, 1, 3).reshape(
+                    S, m_loc, S * K)
+                gtopd, gtopg = merge_topk(cand_d, cand_g, K)
+                gemit = recv[..., 2 * K].sum(dim=1, dtype=torch.int32)
+            return gtopd.reshape(m, K), gtopg.reshape(m, K), gemit.reshape(m)
 
     def _check_query_batch(self, queries, k_neighbors: Optional[int]):
         """The batch on the index's device, its size and its K."""
         if self.store is None:
             raise RuntimeError("call build() or insert() first")
         S = self.cfg.n_shards
-        q = torch.as_tensor(queries, dtype=torch.float32,
-                            device=self.device)
+        with spans.span("lsh.upload"):
+            q = torch.as_tensor(queries, dtype=torch.float32,
+                                device=self.device)
         m = q.shape[0]
         if m % S:
             raise ValueError(f"m={m} must divide by n_shards={S}")

@@ -28,6 +28,10 @@ recorded on it.
 Results are bitwise those of the synchronous ``flush`` path: the stages
 are the fused query cut at its exchanges, and retirement applies the
 same numpy post-processing in submission order (tested).
+
+``submit`` and ``retire_one`` run inside the spans ``serve.submit`` and
+``serve.retire`` (``runtime/spans.py``), and a retire counts the
+dispatch's live routed rows as the index's own fetch does.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import DistributedLSHIndex
+from repro_torch.runtime import spans
 from repro_torch.serving.service import ServiceStats
 
 
@@ -120,32 +125,33 @@ class QueryPipeline:
         if not 0 < take <= self.bucket_size:
             raise ValueError(f"got {take} handles for bucket_size="
                              f"{self.bucket_size}")
-        while len(self._inflight) >= self.depth:
-            self.retire_one()
-        s = self._slot
-        buf = self._slots[s].numpy()
-        buf[:take] = rows
-        buf[take:] = 0.0   # re-zero the pad region (slot is reused)
-        t0 = self._clock()
-        idx = self.index
-        ctx = (torch.cuda.stream(self.stream) if self.stream is not None
-               else contextlib.nullcontext())
-        with ctx:
-            q = self._slots[s].to(idx.device, non_blocking=True)
-            disp = idx.query_dispatch(q)
-            scanned = idx.query_scan(disp, k_neighbors=self.k_neighbors)
-            topd, topg, emit = idx.query_return(scanned)
-            done = None
-            if self.stream is not None:
-                done = torch.cuda.Event()
-                done.record(self.stream)
-        self._inflight.append(_InFlight(
-            handles=handles, topd=topd, topg=topg, emit=emit,
-            fq=disp.fq, drops=disp.drops, done=done, take=take,
-            reason=reason, t_submit=t0))
-        self._slot = (s + 1) % self.depth
-        if len(self._inflight) > self.stats.inflight_peak:
-            self.stats.inflight_peak = len(self._inflight)
+        with spans.span("serve.submit"):
+            while len(self._inflight) >= self.depth:
+                self.retire_one()
+            s = self._slot
+            buf = self._slots[s].numpy()
+            buf[:take] = rows
+            buf[take:] = 0.0   # re-zero the pad region (slot is reused)
+            t0 = self._clock()
+            idx = self.index
+            ctx = (torch.cuda.stream(self.stream) if self.stream is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                q = self._slots[s].to(idx.device, non_blocking=True)
+                disp = idx.query_dispatch(q)
+                scanned = idx.query_scan(disp, k_neighbors=self.k_neighbors)
+                topd, topg, emit = idx.query_return(scanned)
+                done = None
+                if self.stream is not None:
+                    done = torch.cuda.Event()
+                    done.record(self.stream)
+            self._inflight.append(_InFlight(
+                handles=handles, topd=topd, topg=topg, emit=emit,
+                fq=disp.fq, drops=disp.drops, done=done, take=take,
+                reason=reason, t_submit=t0))
+            self._slot = (s + 1) % self.depth
+            if len(self._inflight) > self.stats.inflight_peak:
+                self.stats.inflight_peak = len(self._inflight)
 
     def retire_one(self) -> int:
         """Fetch + resolve the OLDEST in-flight batch (blocks on its
@@ -158,41 +164,43 @@ class QueryPipeline:
         if not self._inflight:
             return 0
         fl = self._inflight.popleft()
-        if fl.done is not None:
-            fl.done.synchronize()           # the batch has run
-        topd = fl.topd.cpu().numpy()
-        topg = fl.topg.cpu().numpy()
-        emit = fl.emit.cpu().numpy()
-        fq = fl.fq.cpu().numpy().reshape(-1)
-        drops = int(fl.drops.sum())
-        now = self._clock()
-        dists = np.sqrt(np.where(topd < np.float32(3e38), topd, np.inf))
+        with spans.span("serve.retire"):
+            if fl.done is not None:
+                fl.done.synchronize()           # the batch has run
+            topd = fl.topd.cpu().numpy()
+            topg = fl.topg.cpu().numpy()
+            emit = fl.emit.cpu().numpy()
+            fq = fl.fq.cpu().numpy().reshape(-1)
+            drops = int(fl.drops.sum())
+            now = self._clock()
+            dists = np.sqrt(np.where(topd < np.float32(3e38), topd, np.inf))
 
-        st = self.stats
-        for i, h in enumerate(fl.handles):
-            h.gids = topg[i].copy()
-            h.dists = dists[i].copy()
-            h.gid = int(h.gids[0])
-            h.dist = float(h.dists[0])
-            h.n_within_cr = int(emit[i])
-            h.fq = int(fq[i])
-            h.done = True
-            st.record_latency((now - h.t_submit) * 1e3)
-            resolved = getattr(h, "_resolved", None)
-            if resolved is not None:
-                resolved()
+            st = self.stats
+            for i, h in enumerate(fl.handles):
+                h.gids = topg[i].copy()
+                h.dists = dists[i].copy()
+                h.gid = int(h.gids[0])
+                h.dist = float(h.dists[0])
+                h.n_within_cr = int(emit[i])
+                h.fq = int(fq[i])
+                h.done = True
+                st.record_latency((now - h.t_submit) * 1e3)
+                resolved = getattr(h, "_resolved", None)
+                if resolved is not None:
+                    resolved()
 
-        st.queries += fl.take
-        st.batches += 1
-        st.pad_rows += self.bucket_size - fl.take
-        st.drops += drops
-        st.routed_rows += int(fq[:fl.take].sum())
-        # busy-interval union: overlapped device time is counted once
-        st.query_time_s += now - max(fl.t_submit, self._busy_until)
-        self._busy_until = now
-        key = f"flush_{fl.reason}"
-        setattr(st, key, getattr(st, key) + 1)
-        return fl.take
+            st.queries += fl.take
+            st.batches += 1
+            st.pad_rows += self.bucket_size - fl.take
+            st.drops += drops
+            st.routed_rows += int(fq[:fl.take].sum())
+            spans.count("lsh.dispatch.rows_live", fq)
+            # busy-interval union: overlapped device time is counted once
+            st.query_time_s += now - max(fl.t_submit, self._busy_until)
+            self._busy_until = now
+            key = f"flush_{fl.reason}"
+            setattr(st, key, getattr(st, key) + 1)
+            return fl.take
 
     def drain(self) -> int:
         """Retire every in-flight batch; returns total queries answered."""

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.core.index import (DeleteResult, DistributedLSHIndex,
                                     InsertResult, check_gid_range)
+from repro_torch.runtime import spans
 
 
 @dataclasses.dataclass
@@ -253,45 +254,46 @@ class ShardedLSHService:
         self._deadline = (self._clock() + self.max_latency_ms / 1e3
                           if self._pending else None)
 
-        pad = self.bucket_size - take
-        buf = np.zeros((self.bucket_size, self.index.cfg.d), np.float32)
-        buf[:take] = rows
-        t0 = self._clock()
-        try:
-            res = self.index.query(buf, k_neighbors=self.k_neighbors)
-        except BaseException:
-            # a failed query step must not orphan the handles (result()
-            # would spin forever on an empty queue): requeue with their
-            # ORIGINAL deadline (already advanced/cleared above) and
-            # surface the error
-            self._pending[:0] = handles
-            self._pending_q[:0] = rows
-            self._deadline = prev_deadline
-            raise
-        now = self._clock()
-        dt = now - t0
+        with spans.span("serve.flush"):
+            pad = self.bucket_size - take
+            buf = np.zeros((self.bucket_size, self.index.cfg.d), np.float32)
+            buf[:take] = rows
+            t0 = self._clock()
+            try:
+                res = self.index.query(buf, k_neighbors=self.k_neighbors)
+            except BaseException:
+                # a failed query step must not orphan the handles (result()
+                # would spin forever on an empty queue): requeue with their
+                # ORIGINAL deadline (already advanced/cleared above) and
+                # surface the error
+                self._pending[:0] = handles
+                self._pending_q[:0] = rows
+                self._deadline = prev_deadline
+                raise
+            now = self._clock()
+            dt = now - t0
 
-        st = self.stats
-        for i, h in enumerate(handles):
-            h.gids = res.topk_gid[i].copy()
-            h.dists = res.topk_dist[i].copy()
-            h.gid = int(h.gids[0])
-            h.dist = float(h.dists[0])
-            h.n_within_cr = int(res.n_within_cr[i])
-            h.fq = int(res.fq[i])
-            h.done = True
-            st.record_latency((now - h.t_submit) * 1e3)
+            st = self.stats
+            for i, h in enumerate(handles):
+                h.gids = res.topk_gid[i].copy()
+                h.dists = res.topk_dist[i].copy()
+                h.gid = int(h.gids[0])
+                h.dist = float(h.dists[0])
+                h.n_within_cr = int(res.n_within_cr[i])
+                h.fq = int(res.fq[i])
+                h.done = True
+                st.record_latency((now - h.t_submit) * 1e3)
 
-        st.queries += take
-        st.batches += 1
-        st.pad_rows += pad
-        st.drops += res.drops
-        # padded rows still route (their offsets are hashed), so count
-        # only the live rows as the paper's shuffle size
-        st.routed_rows += int(res.fq[:take].sum())
-        st.query_time_s += dt
-        setattr(st, f"flush_{reason}", getattr(st, f"flush_{reason}") + 1)
-        return take
+            st.queries += take
+            st.batches += 1
+            st.pad_rows += pad
+            st.drops += res.drops
+            # padded rows still route (their offsets are hashed), so count
+            # only the live rows as the paper's shuffle size
+            st.routed_rows += int(res.fq[:take].sum())
+            st.query_time_s += dt
+            setattr(st, f"flush_{reason}", getattr(st, f"flush_{reason}") + 1)
+            return take
 
     def drain(self) -> int:
         """Flush until no queries are pending; returns the total answered."""
